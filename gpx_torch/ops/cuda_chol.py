@@ -1,0 +1,118 @@
+"""Blocked Cholesky factor and inverse: the leaf kernel
+(``csrc/chol_inv_tile.cu``) and the torch recursion over the product
+kernels.
+
+Port of ``gpx/ops/pallas_chol.py::chol_inv_tile`` and of the Schur
+recursion ``_rec_value`` / ``_split``::
+
+    chol_inv(A):                       # A = [[A11, .], [A21, A22]]
+      L11, M11 = chol_inv(A11)
+      L21 = A21 @ M11^T                #   trmm right_lower_t
+      S   = A22 - L21 @ L21^T          #   syrk_lower (lower tiles only)
+      L22, M22 = chol_inv(S)
+      M21 = -M22 @ (L21 @ M11)         #   trmm right_lower (neg) + left_lower
+
+The JAX leaf factors a 2048^2 tile in one program; a Hopper block's shared
+memory holds at most a 128^2 tile and its inverse, so the recursion here
+goes on down to leaves of at most :data:`LEAF` (one CTA each).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpx_torch.ops import _build
+from gpx_torch.ops.cuda_trmm import syrk_lower, trmm
+
+LEAF = 128  # csrc/chol_inv_tile.cu: LEAF_MAX
+_ARGS = [_build.P, _build.L, _build.P, _build.L, _build.P, _build.L,
+         _build.I, _build.P]
+
+
+def chol_inv_tile_reference(a):
+    """``(L, L^-1)`` of the SPD matrix whose lower triangle is ``a``."""
+    sym = torch.tril(a) + torch.tril(a, -1).T
+    l = torch.linalg.cholesky(sym)
+    eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    return l, torch.linalg.solve_triangular(l, eye, upper=False)
+
+
+def chol_inv_tile(a, *, l_out=None, m_out=None):
+    """``(L, L^-1)`` of one ``(t, t)`` SPD tile, ``t <= LEAF``, from its
+    lower triangle. Both have exact zeros above the diagonal. ``l_out`` /
+    ``m_out`` receive them in place; ``l_out`` may be ``a`` itself."""
+    t = a.shape[0]
+    if a.ndim != 2 or tuple(a.shape) != (t, t) or not 0 < t <= LEAF:
+        raise ValueError(f"chol_inv_tile needs a (t, t) tile, t <= {LEAF}: "
+                         f"{tuple(a.shape)}")
+    for o in (l_out, m_out):
+        if o is not None and tuple(o.shape) != (t, t):
+            raise ValueError(f"output {tuple(o.shape)} for a ({t}, {t}) tile")
+    if a.device.type == "cpu":
+        l, m = chol_inv_tile_reference(a)
+        if l_out is not None:
+            l = l_out.copy_(l)
+        if m_out is not None:
+            m = m_out.copy_(m)
+        return l, m
+    dev = a.device
+    _build.require(a, "a", ndim=2, device=dev)
+    l = torch.empty((t, t), dtype=torch.float32, device=dev) if l_out is None else l_out
+    m = torch.empty((t, t), dtype=torch.float32, device=dev) if m_out is None else m_out
+    _build.require(l, "l_out", ndim=2, device=dev)
+    _build.require(m, "m_out", ndim=2, device=dev)
+    fn = _build.function("chol_inv_tile", "gpx_chol_inv_tile", _ARGS)
+    status = fn(_build.ptr(a), a.stride(0), _build.ptr(l), l.stride(0),
+                _build.ptr(m), m.stride(0), t, _build.stream(dev))
+    _build.check(status, "chol_inv_tile")
+    chol_inv_tile.launches += 1
+    return l, m
+
+
+chol_inv_tile.launches = 0
+
+
+def _split(n: int) -> int:
+    """Leading-panel size: half of a power of 2, else the largest power of
+    2 below ``n`` (the leaves are then the binary decomposition of ``n``)."""
+    return n // 2 if (n & (n - 1)) == 0 else 1 << (n.bit_length() - 1)
+
+
+def chol_inv(a, *, base: int = LEAF):
+    """``(L, L^-1)`` of an SPD matrix, both lower triangular with exact
+    zeros above the diagonal; only the lower triangle of ``a`` is read.
+
+    ``L`` and ``M = L^-1`` start as zeros and every block is written into
+    them in place, through views (:func:`_rec`). ``base`` (a power of 2,
+    64 to :data:`LEAF`) is the largest leaf: the recursion's 64-wide
+    product tiles then never write across a leaf's diagonal block."""
+    n = a.shape[-1]
+    if a.ndim != 2 or tuple(a.shape) != (n, n) or n == 0:
+        raise ValueError(f"chol_inv needs a square matrix: {tuple(a.shape)}")
+    if base & (base - 1) or not 64 <= base <= LEAF:
+        raise ValueError(f"base must be a power of 2 in [64, {LEAF}]: {base}")
+    l = torch.zeros_like(a)
+    m = torch.zeros_like(a)
+    _rec(a, l, m, 0, n, base)
+    return l, m
+
+
+def _rec(src, l, m, off: int, t: int, base: int):
+    """Factor the ``(t, t)`` block at ``(off, off)`` of ``src`` and write its
+    L and M blocks into ``l`` and ``m`` at the same place, in place.
+    ``src`` is ``a`` along the leading chain and ``l`` for a Schur child,
+    whose complement the parent's syrk deposited there."""
+    if t <= base:
+        blk = slice(off, off + t)
+        chol_inv_tile(src[blk, blk], l_out=l[blk, blk], m_out=m[blk, blk])
+        return
+    h = _split(t)
+    s1, s2 = slice(off, off + h), slice(off + h, off + t)
+    _rec(src, l, m, off, h, base)
+    # a fresh buffer: when src is l, A21 is the block this overwrites
+    l21 = trmm(src[s2, s1], m[s1, s1], mode="right_lower_t")
+    l[s2, s1].copy_(l21)
+    syrk_lower(src[s2, s2], l21, out=l[s2, s2])
+    _rec(l, l, m, off + h, t - h, base)
+    t1 = trmm(l21, m[s1, s1], mode="right_lower", neg=True)
+    trmm(t1, m[s2, s2], mode="left_lower", out=m[s2, s1])

@@ -1,0 +1,79 @@
+"""The fused logML gradient (``csrc/logml_grad.cu``) and its plain version.
+
+Port of ``gpx/ops/pallas_logml_grad.py::logml_kernel_grads`` with
+``with_correction=True``, non-ARD: ``d logML/d theta = sum_ij W_ij
+dK_ij/d theta`` with ``W = 0.5 (alpha alpha^T - K^-1)`` and
+``K^-1 = L^-T L^-1``, plus the two traces of the first-order logdet
+correction, without K^-1 or W reaching memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpx_torch.kernels import has_white
+from gpx_torch.ops import _build
+from gpx_torch.ops.distance import as_locations, sq_distances
+from gpx_torch.ops.terms import table_tensors
+from gpx_torch.params import leaves, unflatten
+
+TILE = 64  # csrc/tile_core.cuh: BM
+_ARGS = [_build.P, _build.L, _build.P, _build.I, _build.P, _build.I,
+         _build.P, _build.I, _build.P, _build.I, _build.P, _build.P, _build.P]
+
+
+def logml_kernel_grads_reference(kernel, x, alpha, l_inv):
+    """Plain version: forms ``K^-1`` and ``W`` explicitly and contracts
+    ``W`` with the kernel's tangents by autograd of ``evaluate_r2``."""
+    x = as_locations(x)
+    kinv = l_inv.T @ l_inv
+    w = 0.5 * (torch.outer(alpha, alpha) - kinv)
+    r2 = sq_distances(x, exact=x.shape[-1] > 8 and has_white(kernel))
+    with torch.enable_grad():
+        kl = [t.detach().requires_grad_() for t in leaves(kernel)]
+        kval = unflatten(kernel, kl).evaluate_r2(r2)
+        grads = torch.autograd.grad(torch.sum(w * kval), kl)
+    kval = kval.detach()
+    d_kernel = unflatten(kernel, list(grads))
+    return d_kernel, (torch.sum(kinv * kval), torch.trace(kinv))
+
+
+def logml_kernel_grads(kernel, x, alpha, l_inv):
+    """``(d_kernel, (tkw, trw))``: the logML gradient for every kernel
+    hyperparameter (a tree shaped like ``kernel``), ``tkw = tr(W_hat K)``
+    with K taken without the nugget, and ``trw = tr(W_hat)``, where
+    ``W_hat = l_inv^T l_inv``. On the card ``n`` must be a multiple of
+    :data:`TILE`. On CPU tensors this is the plain version."""
+    x = as_locations(x)
+    n = x.shape[0]
+    if tuple(l_inv.shape) != (n, n) or tuple(alpha.shape) != (n,):
+        raise ValueError(f"l_inv {tuple(l_inv.shape)} / alpha "
+                         f"{tuple(alpha.shape)} for n = {n}")
+    if x.device.type == "cpu":
+        return logml_kernel_grads_reference(kernel, x, alpha, l_inv)
+    if not kernel.cuda_supported:
+        raise ValueError(f"{type(kernel).__name__} has no CUDA device function")
+    if n % TILE:
+        raise ValueError(f"n = {n} must be a multiple of {TILE}")
+    dev = x.device
+    for t, name, nd in ((x, "x", 2), (alpha, "alpha", 1), (l_inv, "l_inv", 2)):
+        _build.require(t, name, ndim=nd, device=dev)
+    xc = (x - x.mean(dim=0, keepdim=True)).contiguous()
+    table, params = table_tensors(kernel, dev)
+    n_params = params.shape[0]
+    nb = n // TILE
+    partials = torch.empty((nb * (nb + 1) // 2, n_params + 2),
+                           dtype=torch.float32, device=dev)
+    out = torch.empty((n_params + 2,), dtype=torch.float32, device=dev)
+    fn = _build.function("logml_grad", "gpx_logml_grad", _ARGS)
+    status = fn(_build.ptr(l_inv), l_inv.stride(0), _build.ptr(xc),
+                xc.shape[1], _build.ptr(alpha), n, _build.ptr(table),
+                table.shape[0] // 2, _build.ptr(params), n_params,
+                _build.ptr(partials), _build.ptr(out), _build.stream(dev))
+    _build.check(status, "logml_kernel_grads")
+    logml_kernel_grads.launches += 1
+    grads = [out[p].reshape(leaf.shape) for p, leaf in enumerate(leaves(kernel))]
+    return unflatten(kernel, grads), (out[n_params], out[n_params + 1])
+
+
+logml_kernel_grads.launches = 0

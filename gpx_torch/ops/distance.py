@@ -1,0 +1,63 @@
+"""Pairwise squared distances — the port of ``gpx/ops/distance.py``."""
+
+from __future__ import annotations
+
+import torch
+
+from gpx_torch._device import as_tensor
+
+
+def as_locations(x):
+    """Coerce to an ``(N, D)`` tensor: 1-D input becomes ``(N, 1)``.
+    Input that is not a tensor goes to the CUDA card."""
+    x = as_tensor(x)
+    if x.ndim == 1:
+        x = x[:, None]
+    if x.ndim != 2:
+        raise ValueError(
+            f"locations must be (N,) or (N, D), got shape {tuple(x.shape)}"
+        )
+    return x
+
+
+def check_xy(x, y, what: str = "y"):
+    """Validate targets against locations; returns ``(x, y)`` with ``x``
+    coerced and ``y`` on ``x``'s device."""
+    x = as_locations(x)
+    y = as_tensor(y, device=x.device)
+    if y.ndim != 1 or y.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"{what} must be a length-N vector matching x's N={x.shape[0]}, "
+            f"got shape {tuple(y.shape)}"
+        )
+    return x, y
+
+
+def sq_distances(x1, x2=None, *, exact: bool = False):
+    """Pairwise squared Euclidean distances.
+
+    The points are centred first (distances are translation-invariant, and
+    centring keeps coordinate rounding out of r2). For ``D <= 8`` or
+    ``exact=True`` the broadcast-difference form is used, which keeps
+    coincident points at exactly 0 (White's ``r2 == 0``); otherwise the
+    norms-plus-dot identity. The result is clamped at 0 and, in the
+    symmetric case, its diagonal is exactly 0.
+    """
+    x1 = as_locations(x1)
+    symmetric = x2 is None
+    x2 = x1 if symmetric else as_locations(x2)
+    center = x1.mean(dim=0, keepdim=True).detach()
+    x1 = x1 - center
+    x2 = x1 if symmetric else x2 - center
+    if exact or x1.shape[-1] <= 8:
+        diff = x1[:, None, :] - x2[None, :, :]
+        r2 = torch.sum(diff * diff, dim=-1)
+    else:
+        n1 = torch.sum(x1 * x1, dim=-1)
+        n2 = n1 if symmetric else torch.sum(x2 * x2, dim=-1)
+        r2 = n1[:, None] + n2[None, :] - 2.0 * (x1 @ x2.T)
+    r2 = torch.clamp_min(r2, 0.0)
+    if symmetric:
+        eye = torch.eye(r2.shape[0], dtype=torch.bool, device=r2.device)
+        r2 = torch.where(eye, torch.zeros_like(r2), r2)
+    return r2

@@ -83,14 +83,29 @@ chol_inv_tile_kernel(const float* a, int64_t lda, float* l, int64_t ldl,
 
 extern "C" {
 
+static size_t leaf_smem(int t) {
+  return (size_t)(2 * t * (t + 1) + t) * sizeof(float);
+}
+
 int gpx_chol_inv_tile(const float* a, int64_t lda, float* l, int64_t ldl,
                       float* m, int64_t ldm, int t, void* stream) {
   if (t < 1 || t > LEAF_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * t * (t + 1) + t) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_inv_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // opt in once per device to the shared memory of the largest leaf, off
+  // the serial chain of leaf launches
+  constexpr int MAX_DEVICES = 64;
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(chol_inv_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)leaf_smem(LEAF_MAX));
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
+  const size_t smem = leaf_smem(t);
   chol_inv_tile_kernel<<<1, LEAF_THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(a, lda, l, ldl,
                                                               m, ldm, t);

@@ -40,10 +40,21 @@ def terms(kernel) -> list[tuple[int, int, object]]:
     return out
 
 
+_tables: dict[tuple, torch.Tensor] = {}
+
+
 def table_tensors(kernel, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(table, params)``: int32 ``(2 T,)`` and float32 ``(P,)`` on ``device``."""
-    flat = [v for typ, off, _ in terms(kernel) for v in (typ, off)]
-    table = torch.tensor(flat, dtype=torch.int32, device=device)
+    """``(table, params)``: int32 ``(2 T,)`` and float32 ``(P,)`` on ``device``.
+
+    The table depends only on the kernel's structure, so it is copied to
+    the device once per structure; ``params`` is gathered from the
+    kernel's leaves at every call (a device op when they are on it)."""
+    flat = tuple(v for typ, off, _ in terms(kernel) for v in (typ, off))
+    key = (flat, torch.device(device))
+    table = _tables.get(key)
+    if table is None:
+        table = torch.tensor(flat, dtype=torch.int32, device=device)
+        _tables[key] = table
     ps = [leaf.reshape(()) for leaf in leaves(kernel)]
     if any(p.numel() != 1 for p in ps):
         raise ValueError("term-table hyperparameters must be scalars")

@@ -111,3 +111,18 @@ def test_term_device_functions_match_autograd(rng):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=0)
     table = [(typ, off) for typ, off, _ in terms.terms(kern)]
     assert table == [(terms.SE, 0), (terms.WHITE, 2), (terms.SE, 3)]
+
+
+def test_table_tensors_cache_structure_not_values():
+    """The term table is built once per kernel structure; the
+    hyperparameters are read anew at each call."""
+    cpu = {"device": "cpu", "dtype": torch.float32}
+    k1 = gt.se(3.0, 5.5, **cpu) + gt.white(0.5, **cpu)
+    k2 = gt.se(1.0, 2.0, **cpu) + gt.white(0.25, **cpu)
+    t1, p1 = terms.table_tensors(k1, "cpu")
+    t2, p2 = terms.table_tensors(k2, torch.device("cpu"))
+    assert t1 is t2
+    assert t1.dtype == torch.int32 and t1.tolist() == [terms.SE, 0, terms.WHITE, 2]
+    assert p1.tolist() == [3.0, 5.5, 0.5] and p2.tolist() == [1.0, 2.0, 0.25]
+    t3, _ = terms.table_tensors(gt.white(0.5, **cpu) + gt.se(3.0, 5.5, **cpu), "cpu")
+    assert t3.tolist() == [terms.WHITE, 0, terms.SE, 1]

@@ -7,10 +7,12 @@ leaves and sub-kernels in that order; :mod:`gpx_torch.params` flattens and
 rebuilds kernels from it, in the order ``jax.tree_util.tree_flatten`` gives
 for the JAX kernels.
 
-``cuda_supported`` (the JAX package's ``pallas_safe``) says whether the CUDA
-kernels' term table (:mod:`gpx_torch.ops.terms`) can evaluate the kernel: for
-now SE and White terms, alone or in a ``Sum``. Every other kernel runs the
-plain torch route.
+``pallas_safe`` keeps the JAX package's meaning (the kernel may run inside
+a tile kernel; every kernel but general-``nu`` Matérn) and gates
+``method="hybrid"`` as it does there. ``cuda_supported`` says whether the
+CUDA kernels' term table (:mod:`gpx_torch.ops.terms`) can evaluate the
+kernel: for now SE and White terms, alone or in a ``Sum``. Every other
+kernel runs the plain torch route.
 """
 
 from __future__ import annotations
@@ -49,9 +51,28 @@ class Kernel(FieldModule):
         return True
 
     @property
+    def pallas_safe(self) -> bool:
+        """True when the kernel may run inside a tile kernel (the JAX
+        package's gate of its fused and hybrid paths)."""
+        return True
+
+    @property
     def cuda_supported(self) -> bool:
         """True when the CUDA kernels' term table evaluates this kernel."""
         return False
+
+    def diag(self, x, dtype=None):
+        """``k(x_i, x_i)`` per point."""
+        from gpx_torch.ops.distance import as_locations
+
+        x = as_locations(x)
+        dtype = dtype or x.dtype
+        if self.is_stationary:
+            return self.evaluate_r2(torch.zeros(x.shape[0], dtype=dtype,
+                                                device=x.device))
+        r2 = torch.zeros((1, 1), dtype=dtype, device=x.device)
+        return torch.func.vmap(
+            lambda xi: self.evaluate_xx(xi[None], xi[None], r2)[0, 0])(x)
 
     def gram(self, x, x2=None, *, nugget: float = 0.0):
         from gpx_torch.ops.gram import gram
@@ -122,6 +143,10 @@ class Matern(Kernel):
             )
             poly = poly + coeff * (2.0 * s) ** (p - i)
         return self.sigma * scale * poly * torch.exp(-s)
+
+    @property
+    def pallas_safe(self) -> bool:
+        return self._half_integer_p is not None
 
 
 class White(Kernel):
@@ -236,6 +261,10 @@ class Sum(Kernel):
         return all(k.is_stationary for k in self.kernels)
 
     @property
+    def pallas_safe(self) -> bool:
+        return all(k.pallas_safe for k in self.kernels)
+
+    @property
     def cuda_supported(self) -> bool:
         # the term table holds a flat sum of leaf terms
         return all(
@@ -266,6 +295,10 @@ class Product(Kernel):
     def is_stationary(self) -> bool:
         return all(k.is_stationary for k in self.kernels)
 
+    @property
+    def pallas_safe(self) -> bool:
+        return all(k.pallas_safe for k in self.kernels)
+
 
 def has_white(kernel) -> bool:
     """Whether the kernel tree holds a :class:`White` term anywhere (the Gram
@@ -289,6 +322,27 @@ def unwrap_ard(kernel, x, x2=None):
             x2 = x2 * s
         kernel = kernel.base
     return kernel, x, x2
+
+
+def split_noise(kernel):
+    """``(smooth_part, noise_variance)``: the noise is the sum of the
+    top-level White terms, the additive diagonal. ``(None, sigma)`` for a
+    kernel that is only White noise; White inside a Product cannot be split
+    and stays in the smooth part."""
+    if isinstance(kernel, White):
+        return None, kernel.sigma
+    zero = next(iter(kernel.buffers())).new_zeros(())
+    if isinstance(kernel, Sum):
+        smooth, noise = [], zero
+        for k in kernel.kernels:
+            s, nz = split_noise(k)
+            noise = noise + nz
+            if s is not None:
+                smooth.append(s)
+        if not smooth:
+            return None, noise
+        return (smooth[0] if len(smooth) == 1 else Sum(smooth)), noise
+    return kernel, zero
 
 
 # -- constructors: ``device`` defaults to the CUDA card ------------------------

@@ -8,6 +8,11 @@ CUDA device functions support and ``n >= FUSED_MIN_N``, it runs the fused
 route: the Gram kernel, ``chol_inv`` over the leaf and product kernels, and
 the fused gradient kernel. Everything else takes the non-fused route on
 ``torch.linalg``.
+
+``method="hybrid"`` factors with the trailing-spine M21 blocks skipped,
+solves alpha and a Rademacher probe block through that factor, and
+estimates the trace term of the gradient with the probe kernel, deflated by
+a pivoted-Cholesky basis (:func:`_logml_value_and_grad_hybrid`).
 """
 
 from __future__ import annotations
@@ -21,8 +26,14 @@ from gpx_torch._device import full_fp32
 from gpx_torch.ops.chol import (
     back_solve, cholesky, forward_solve, spd_inverse_from_chol,
 )
-from gpx_torch.ops.cuda_chol import LEAF, chol_inv
-from gpx_torch.ops.cuda_logml_grad import TILE, logml_kernel_grads
+from gpx_torch.kernels import Ard, Sum, has_white, split_noise
+from gpx_torch.models.gp_iterative import pivoted_cholesky
+from gpx_torch.ops.cuda_chol import (
+    LEAF, chol_inv, spine_solve_lower, spine_solve_lower_t,
+)
+from gpx_torch.ops.cuda_logml_grad import (
+    TILE, logml_kernel_grads, logml_probe_grads,
+)
 from gpx_torch.ops.distance import check_xy
 from gpx_torch.ops.gram import gram, uses_cuda_kernel
 from gpx_torch.params import Parameters, leaves, unflatten
@@ -62,20 +73,35 @@ def _grads_or_zeros(outputs, inputs, grad_outputs=None):
 def logml_value_and_grad(params: Parameters, x, y, *,
                          nugget: float = LOGML_NUGGET,
                          method: str = "analytic",
-                         fast_gradients: bool = False):
+                         fast_gradients: bool = False,
+                         probes: int = 64, probe_key=None,
+                         deflate: int | None = None):
     """``(logML, d logML / d params)``, the gradient as a ``Parameters``
     tree of the same structure.
 
     ``method="analytic"`` uses the trace identity ``d logML/d theta =
     0.5 (alpha^T G alpha - tr(K^-1 G))``, ``G = dK/d theta`` (fused route
     on the card, see :func:`_fused_gate`); ``method="autodiff"`` runs
-    torch autograd through ``torch.linalg.cholesky``. The hybrid method and
-    ``fast_gradients`` are not ported yet."""
+    torch autograd through ``torch.linalg.cholesky``.
+
+    ``method="hybrid"`` estimates the trace term from ``probes`` Rademacher
+    probes drawn from ``probe_key`` (a ``torch.Generator`` on ``x``'s
+    device; ``None`` is a generator seeded 0, so repeated calls agree),
+    deflated by a rank-``deflate`` basis (``None``: ``min(64, n // 32)``).
+    It needs a stationary, Pallas-safe kernel; on the card, one the CUDA
+    term table holds. ``fast_gradients`` is not ported yet."""
     if fast_gradients:
         raise NotImplementedError("fast_gradients is not ported yet")
-    if method == "hybrid":
-        raise NotImplementedError("method='hybrid' is not ported yet")
     full_fp32()
+    if method == "hybrid":
+        _hybrid_gate(params.kernel)
+        x, y = check_xy(x, y)
+        if probe_key is None:
+            probe_key = torch.Generator(device=x.device).manual_seed(0)
+        z = torch.randint(0, 2, (x.shape[0], probes), generator=probe_key,
+                          device=x.device).mul_(2).sub_(1)
+        return _logml_value_and_grad_hybrid(params, x, y, nugget, z=z,
+                                            deflate=deflate)
     if method == "autodiff":
         ps = [t.detach().requires_grad_() for t in leaves(params)]
         with torch.enable_grad():
@@ -178,3 +204,137 @@ def _logml_value_and_grad_analytic(params: Parameters, x, y, nugget: float):
     d_mean = unflatten(params.mean,
                        _grads_or_zeros(mean_val, ms, alpha.to(mean_val.dtype)))
     return value, Parameters(mean=d_mean, kernel=d_kernel)
+
+
+def _hybrid_gate(kernel) -> None:
+    """Raise unless ``method="hybrid"`` takes ``kernel``: ``ValueError``
+    for a kernel that is not stationary and Pallas-safe (as the JAX
+    package), ``NotImplementedError`` for a top-level ``Ard``, which the
+    JAX package runs and the port does not yet."""
+    base = kernel
+    if isinstance(kernel, Ard) and not isinstance(kernel.base, Ard):
+        base = kernel.base
+    if isinstance(base, Ard) or not base.is_stationary or not base.pallas_safe:
+        raise ValueError(
+            "method='hybrid' needs a stationary Pallas-safe kernel; use "
+            "method='analytic'")
+    if isinstance(kernel, Ard):
+        raise NotImplementedError(
+            "method='hybrid' with Ard is not ported yet (the sdot leg of the "
+            "gradient kernels)")
+
+
+def _logml_value_and_grad_hybrid(params: Parameters, x, y, nugget: float, *,
+                                 z, deflate: int | None = None,
+                                 base: int = LEAF):
+    """The hybrid logML and gradient with the ``(n, s)`` probe block ``z``.
+
+    ``chol_inv(spine=True)`` skips the trailing-spine M21 blocks; alpha
+    (with one refinement step) and the probe block are solved through the
+    spine, and :func:`logml_probe_grads` estimates the trace term in
+    O(n^2 s). With deflation (:func:`_hybrid_deflation`) a second probe
+    contraction on the augmented block gives the gradients of the smooth
+    leaves; the plain estimate gives the diagonal-supported leaves
+    (:func:`_hybrid_diag_mask`) and both logdet-correction traces.
+
+    ``n`` pads to a multiple of the tiles (:func:`_pad_spd`); ``z`` and
+    alpha pad with zero rows, so every pad entry of the estimate is zero
+    and no pad correction is needed. ``base`` is the factor's leaf size.
+    On the card this runs in float32 and needs a kernel the CUDA term table
+    holds; on CPU tensors every kernel call takes its plain version."""
+    x, y = check_xy(x, y)
+    n = x.shape[0]
+    kern = params.kernel
+    if x.device.type == "cuda" and not kern.cuda_supported:
+        raise NotImplementedError(
+            f"method='hybrid' on the card needs the CUDA term table to hold "
+            f"{type(kern).__name__} (not ported yet)")
+    ms = [t.detach().requires_grad_() for t in leaves(params.mean)]
+    with torch.enable_grad():
+        mean_val = unflatten(params.mean, ms)(x)
+    r = y - mean_val.detach()
+    if x.device.type == "cuda":
+        x, r = x.float(), r.float()
+    k_val = gram(kern, x, nugget=nugget)
+
+    pad = (-n) % math.lcm(TILE, base)
+    if pad:
+        k_mat = _pad_spd(k_val, pad)
+        r_vec = F.pad(r, (0, pad))
+        x_c = torch.cat([x, x[:1].expand(pad, x.shape[1])])
+    else:
+        k_mat, r_vec, x_c = k_val, r, x
+
+    l, m = chol_inv(k_mat, base=base, spine=True)
+
+    def solve(b):
+        return spine_solve_lower_t(l, m, spine_solve_lower(l, m, b, base=base),
+                                   base=base)
+
+    alpha0 = solve(r_vec)
+    alpha = alpha0 + solve(r_vec - k_mat @ alpha0)
+    quad = r_vec @ alpha
+
+    z = F.pad(z.to(k_mat.dtype), (0, 0, 0, pad))
+    u_plain, aug = _hybrid_deflation(kern, x_c, z, solve, n, deflate)
+    d_kernel, (tkw, trw) = logml_probe_grads(kern, x_c, alpha, u_plain, z)
+    grads = leaves(d_kernel)
+    if aug is not None:
+        d_defl, _ = logml_probe_grads(kern, x_c, alpha, *aug)
+        grads = [a if plain else b for plain, a, b in
+                 zip(_hybrid_diag_mask(kern), grads, leaves(d_defl))]
+    d_kernel = unflatten(kern, [g.to(leaf.dtype) for g, leaf in
+                                zip(grads, leaves(kern))])
+    # the pad diagonal of m is exactly 1 (log 0) and the estimated traces
+    # cover the real block only, so the real n is the right constant
+    half_logdet = (-torch.sum(torch.log(torch.diagonal(m)))
+                   + 0.5 * (tkw + nugget * trw - n))
+    value = -0.5 * quad - half_logdet - n * _HALF_LOG_2PI
+    d_mean = unflatten(params.mean,
+                       _grads_or_zeros(mean_val, ms, alpha[:n].to(mean_val.dtype)))
+    return value, Parameters(mean=d_mean, kernel=d_kernel)
+
+
+def _hybrid_diag_mask(kernel) -> list[bool]:
+    """Per leaf of ``kernel`` (in :func:`leaves` order): True where its
+    gradient contraction is diagonal-supported, for every leaf of a
+    non-``Sum`` subtree that holds a White term. Those take the plain probe
+    estimate; deflation raises their variance."""
+    if isinstance(kernel, Sum):
+        return [f for k in kernel.kernels for f in _hybrid_diag_mask(k)]
+    return [has_white(kernel)] * len(leaves(kernel))
+
+
+def _hybrid_deflation(kernel, x_c, z, solve, n: int, deflate: int | None):
+    """``(u_plain, aug)``: ``u_plain = K^-1 z``, and ``aug = (u_aug,
+    z_aug)`` (``None`` without deflation) such that the probe kernel's own
+    normalization ``(U Z^T + Z U^T) / (2 s_aug)`` gives::
+
+        Y~ Q^T + Q Y~^T  +  sym((I-P) K^-1 (I-P) Z Z^T) / s
+
+    with ``Q`` an orthonormal rank-``k`` basis of the smooth part's range
+    (pivoted Cholesky of the White-free kernel, then QR), ``P = Q Q^T``,
+    ``Y = K^-1 Q`` and ``Y~ = Y - Q (Q^T Y) / 2``: the exact rank-k part of
+    ``K^-1`` plus the Hutchinson estimate of the doubly deflated rest. The
+    residual-probe columns are prescaled by ``s_aug / s`` and the exact
+    columns by ``2 s_aug``. One solve covers the residual probes and
+    ``Y``; ``u_plain = K^-1 (I-P) z + Y (Q^T z)`` needs no more."""
+    s = z.shape[1]
+    smooth, _ = split_noise(kernel)
+    if deflate is None:
+        deflate = 0 if smooth is None else min(64, n // 32)
+    deflate = int(min(deflate, n))
+    if deflate == 0 or smooth is None:
+        return solve(z), None
+    l_r = pivoted_cholesky(smooth, x_c[:n], deflate)
+    q = F.pad(torch.linalg.qr(l_r.to(z.dtype))[0], (0, 0, 0, z.shape[0] - n))
+    qtz = q.T @ z
+    sol = solve(torch.cat([z - q @ qtz, q], dim=1))
+    u_res, y = sol[:, :s], sol[:, s:]
+    u_plain = u_res + y @ qtz
+    u_res = u_res - q @ (q.T @ u_res)
+    y_t = y - 0.5 * (q @ (q.T @ y))
+    s_aug = s + deflate
+    u_aug = torch.cat([u_res * (s_aug / s), (2.0 * s_aug) * y_t], dim=1)
+    z_aug = torch.cat([z, q], dim=1)
+    return u_plain, (u_aug, z_aug)

@@ -14,13 +14,19 @@ recursion ``_rec_value`` / ``_split``::
 
 The JAX leaf factors a 2048^2 tile in one program; a Hopper block's shared
 memory holds at most a 128^2 tile and its inverse, so the recursion here
-goes on down to leaves of at most :data:`LEAF` (one CTA each).
+goes on down to leaves of at most :data:`LEAF` (one CTA each), launched in
+place on their block of the source (:func:`chol_inv_tile_off`).
+
+``chol_inv(a, spine=True)`` is the factorization of the hybrid gradient: it
+skips the M21 assembly along the trailing spine, and the solves go through
+:func:`spine_solve_lower` / :func:`spine_solve_lower_t`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gpx_torch._device import full_fp32
 from gpx_torch.ops import _build
 from gpx_torch.ops.cuda_trmm import syrk_lower, trmm
 
@@ -72,20 +78,43 @@ def chol_inv_tile(a, *, l_out=None, m_out=None):
 chol_inv_tile.launches = 0
 
 
+def chol_inv_tile_off(src, off: int, t: int, *, l_out=None, m_out=None):
+    """:func:`chol_inv_tile` of the ``(t, t)`` diagonal block at ``(off,
+    off)`` of ``src``, read in place through its pointer and leading
+    dimension (no copy). Its plain version is
+    :func:`chol_inv_tile_reference` on that block."""
+    if src.ndim != 2 or off < 0 or off + t > min(src.shape):
+        raise ValueError(f"block ({off}, {off}) + {t} outside {tuple(src.shape)}")
+    blk = slice(off, off + t)
+    out = chol_inv_tile(src[blk, blk], l_out=l_out, m_out=m_out)
+    if src.device.type == "cuda":
+        chol_inv_tile_off.launches += 1
+    return out
+
+
+chol_inv_tile_off.launches = 0
+
+
 def _split(n: int) -> int:
     """Leading-panel size: half of a power of 2, else the largest power of
     2 below ``n`` (the leaves are then the binary decomposition of ``n``)."""
     return n // 2 if (n & (n - 1)) == 0 else 1 << (n.bit_length() - 1)
 
 
-def chol_inv(a, *, base: int = LEAF):
+def chol_inv(a, *, base: int = LEAF, spine: bool = False):
     """``(L, L^-1)`` of an SPD matrix, both lower triangular with exact
     zeros above the diagonal; only the lower triangle of ``a`` is read.
 
     ``L`` and ``M = L^-1`` start as zeros and every block is written into
     them in place, through views (:func:`_rec`). ``base`` (a power of 2,
     64 to :data:`LEAF`) is the largest leaf: the recursion's 64-wide
-    product tiles then never write across a leaf's diagonal block."""
+    product tiles then never write across a leaf's diagonal block.
+
+    ``spine=True`` skips the M21 assembly at the top level and, recursively,
+    in every Schur child: the blocks no later step of the factorization
+    reads. They stay exactly zero; ``L`` and every other block of ``M`` are
+    bitwise those of ``spine=False``. Solve with :func:`spine_solve_lower`
+    and :func:`spine_solve_lower_t` (same ``base``)."""
     n = a.shape[-1]
     if a.ndim != 2 or tuple(a.shape) != (n, n) or n == 0:
         raise ValueError(f"chol_inv needs a square matrix: {tuple(a.shape)}")
@@ -93,18 +122,20 @@ def chol_inv(a, *, base: int = LEAF):
         raise ValueError(f"base must be a power of 2 in [64, {LEAF}]: {base}")
     l = torch.zeros_like(a)
     m = torch.zeros_like(a)
-    _rec(a, l, m, 0, n, base)
+    _rec(a, l, m, 0, n, base, spine)
     return l, m
 
 
-def _rec(src, l, m, off: int, t: int, base: int):
+def _rec(src, l, m, off: int, t: int, base: int, spine: bool = False):
     """Factor the ``(t, t)`` block at ``(off, off)`` of ``src`` and write its
     L and M blocks into ``l`` and ``m`` at the same place, in place.
     ``src`` is ``a`` along the leading chain and ``l`` for a Schur child,
-    whose complement the parent's syrk deposited there."""
+    whose complement the parent's syrk deposited there. ``spine`` passes to
+    the Schur child only: the leading child's full inverse feeds
+    ``L21 = A21 M11^T``."""
     if t <= base:
         blk = slice(off, off + t)
-        chol_inv_tile(src[blk, blk], l_out=l[blk, blk], m_out=m[blk, blk])
+        chol_inv_tile_off(src, off, t, l_out=l[blk, blk], m_out=m[blk, blk])
         return
     h = _split(t)
     s1, s2 = slice(off, off + h), slice(off + h, off + t)
@@ -113,6 +144,37 @@ def _rec(src, l, m, off: int, t: int, base: int):
     l21 = trmm(src[s2, s1], m[s1, s1], mode="right_lower_t")
     l[s2, s1].copy_(l21)
     syrk_lower(src[s2, s2], l21, out=l[s2, s2])
-    _rec(l, l, m, off + h, t - h, base)
-    t1 = trmm(l21, m[s1, s1], mode="right_lower", neg=True)
-    trmm(t1, m[s2, s2], mode="left_lower", out=m[s2, s1])
+    _rec(l, l, m, off + h, t - h, base, spine)
+    if not spine:
+        t1 = trmm(l21, m[s1, s1], mode="right_lower", neg=True)
+        trmm(t1, m[s2, s2], mode="left_lower", out=m[s2, s1])
+
+
+def spine_solve_lower(l, m, b, *, base: int = LEAF):
+    """``L^-1 b`` from ``chol_inv(..., base=base, spine=True)``; ``b`` is
+    ``(n,)`` or ``(n, s)``. It follows the factorization's own splits: per
+    level ``u1 = M11 b1`` with the leading child's full inverse, then
+    ``u2 = spine(b2 - L21 u1)`` down the trailing spine. The products are
+    full-float32 ``torch.matmul`` on views of ``l`` and ``m``."""
+    full_fp32()
+    t = l.shape[0]
+    if t <= base:
+        return m @ b
+    h = _split(t)
+    u1 = m[:h, :h] @ b[:h]
+    u2 = spine_solve_lower(l[h:, h:], m[h:, h:], b[h:] - l[h:, :h] @ u1,
+                           base=base)
+    return torch.cat([u1, u2])
+
+
+def spine_solve_lower_t(l, m, b, *, base: int = LEAF):
+    """``L^-T b`` from a spine factorization (see :func:`spine_solve_lower`):
+    up the spine, ``x2 = spine_t(b2)`` then ``x1 = M11^T (b1 - L21^T x2)``."""
+    full_fp32()
+    t = l.shape[0]
+    if t <= base:
+        return m.T @ b
+    h = _split(t)
+    x2 = spine_solve_lower_t(l[h:, h:], m[h:, h:], b[h:], base=base)
+    x1 = m[:h, :h].T @ (b[:h] - l[h:, :h].T @ x2)
+    return torch.cat([x1, x2])

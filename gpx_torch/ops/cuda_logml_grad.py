@@ -1,10 +1,14 @@
-"""The fused logML gradient (``csrc/logml_grad.cu``) and its plain version.
+"""The fused logML gradients (``csrc/logml_grad.cu``,
+``csrc/logml_probe_grad.cu``) and their plain versions.
 
-Port of ``gpx/ops/pallas_logml_grad.py::logml_kernel_grads`` with
-``with_correction=True``, non-ARD: ``d logML/d theta = sum_ij W_ij
-dK_ij/d theta`` with ``W = 0.5 (alpha alpha^T - K^-1)`` and
-``K^-1 = L^-T L^-1``, plus the two traces of the first-order logdet
-correction, without K^-1 or W reaching memory.
+Ports of ``gpx/ops/pallas_logml_grad.py::logml_kernel_grads`` and
+``::logml_probe_grads`` with ``with_correction=True``, non-ARD:
+``d logML/d theta = sum_ij W_ij dK_ij/d theta`` with
+``W = 0.5 (alpha alpha^T - K^-1)``, plus the two traces of the first-order
+logdet correction, without K^-1 or W reaching memory. The exact kernel
+forms ``K^-1 = L^-T L^-1``; the probe kernel (the hybrid path) its
+Hutchinson estimate ``(U Z^T + Z U^T) / (2 s)`` from a probe block ``Z``
+and ``U = K^-1 Z``.
 """
 
 from __future__ import annotations
@@ -20,13 +24,15 @@ from gpx_torch.params import leaves, unflatten
 TILE = 64  # csrc/tile_core.cuh: BM
 _ARGS = [_build.P, _build.L, _build.P, _build.I, _build.P, _build.I,
          _build.P, _build.I, _build.P, _build.I, _build.P, _build.P, _build.P]
+_PROBE_ARGS = [_build.P, _build.L, _build.P, _build.L, _build.I, _build.P,
+               _build.I, _build.P, _build.I, _build.P, _build.I, _build.P,
+               _build.I, _build.P, _build.P, _build.P]
 
 
-def logml_kernel_grads_reference(kernel, x, alpha, l_inv):
-    """Plain version: forms ``K^-1`` and ``W`` explicitly and contracts
-    ``W`` with the kernel's tangents by autograd of ``evaluate_r2``."""
+def _contract_reference(kernel, x, alpha, kinv):
+    """Forms ``W`` from a (exact or estimated) ``K^-1`` and contracts it
+    with the kernel's tangents by autograd of ``evaluate_r2``."""
     x = as_locations(x)
-    kinv = l_inv.T @ l_inv
     w = 0.5 * (torch.outer(alpha, alpha) - kinv)
     r2 = sq_distances(x, exact=x.shape[-1] > 8 and has_white(kernel))
     with torch.enable_grad():
@@ -36,6 +42,38 @@ def logml_kernel_grads_reference(kernel, x, alpha, l_inv):
     kval = kval.detach()
     d_kernel = unflatten(kernel, list(grads))
     return d_kernel, (torch.sum(kinv * kval), torch.trace(kinv))
+
+
+def logml_kernel_grads_reference(kernel, x, alpha, l_inv):
+    """Plain version: forms ``K^-1`` and ``W`` explicitly."""
+    return _contract_reference(kernel, x, alpha, l_inv.T @ l_inv)
+
+
+def _prepare(kernel, x, alpha, mats):
+    """Checks of a CUDA launch; returns ``(centred x, table, params,
+    partials, out)``."""
+    if not kernel.cuda_supported:
+        raise ValueError(f"{type(kernel).__name__} has no CUDA device function")
+    n = x.shape[0]
+    if n % TILE:
+        raise ValueError(f"n = {n} must be a multiple of {TILE}")
+    dev = x.device
+    for t, name, nd in ((x, "x", 2), (alpha, "alpha", 1), *mats):
+        _build.require(t, name, ndim=nd, device=dev)
+    xc = (x - x.mean(dim=0, keepdim=True)).contiguous()
+    table, params = table_tensors(kernel, dev)
+    n_out = params.shape[0] + 2
+    nb = n // TILE
+    partials = torch.empty((nb * (nb + 1) // 2, n_out), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((n_out,), dtype=torch.float32, device=dev)
+    return xc, table, params, partials, out
+
+
+def _unpack(kernel, out):
+    n_params = out.shape[0] - 2
+    grads = [out[p].reshape(leaf.shape) for p, leaf in enumerate(leaves(kernel))]
+    return unflatten(kernel, grads), (out[n_params], out[n_params + 1])
 
 
 def logml_kernel_grads(kernel, x, alpha, l_inv):
@@ -51,29 +89,55 @@ def logml_kernel_grads(kernel, x, alpha, l_inv):
                          f"{tuple(alpha.shape)} for n = {n}")
     if x.device.type == "cpu":
         return logml_kernel_grads_reference(kernel, x, alpha, l_inv)
-    if not kernel.cuda_supported:
-        raise ValueError(f"{type(kernel).__name__} has no CUDA device function")
-    if n % TILE:
-        raise ValueError(f"n = {n} must be a multiple of {TILE}")
-    dev = x.device
-    for t, name, nd in ((x, "x", 2), (alpha, "alpha", 1), (l_inv, "l_inv", 2)):
-        _build.require(t, name, ndim=nd, device=dev)
-    xc = (x - x.mean(dim=0, keepdim=True)).contiguous()
-    table, params = table_tensors(kernel, dev)
-    n_params = params.shape[0]
-    nb = n // TILE
-    partials = torch.empty((nb * (nb + 1) // 2, n_params + 2),
-                           dtype=torch.float32, device=dev)
-    out = torch.empty((n_params + 2,), dtype=torch.float32, device=dev)
+    xc, table, params, partials, out = _prepare(kernel, x, alpha,
+                                                [(l_inv, "l_inv", 2)])
     fn = _build.function("logml_grad", "gpx_logml_grad", _ARGS)
     status = fn(_build.ptr(l_inv), l_inv.stride(0), _build.ptr(xc),
                 xc.shape[1], _build.ptr(alpha), n, _build.ptr(table),
-                table.shape[0] // 2, _build.ptr(params), n_params,
-                _build.ptr(partials), _build.ptr(out), _build.stream(dev))
+                table.shape[0] // 2, _build.ptr(params), params.shape[0],
+                _build.ptr(partials), _build.ptr(out), _build.stream(x.device))
     _build.check(status, "logml_kernel_grads")
     logml_kernel_grads.launches += 1
-    grads = [out[p].reshape(leaf.shape) for p, leaf in enumerate(leaves(kernel))]
-    return unflatten(kernel, grads), (out[n_params], out[n_params + 1])
+    return _unpack(kernel, out)
 
 
 logml_kernel_grads.launches = 0
+
+
+def logml_probe_grads_reference(kernel, x, alpha, u, z):
+    """Plain version: forms ``what = (U Z^T + Z U^T) / (2 s)``, then ``W``
+    and its contraction, explicitly."""
+    what = (u @ z.T + z @ u.T) * (0.5 / z.shape[1])
+    return _contract_reference(kernel, x, alpha, what)
+
+
+def logml_probe_grads(kernel, x, alpha, u, z):
+    """``(d_kernel, (tkw, trw))`` as :func:`logml_kernel_grads` returns
+    them, with ``W_hat`` the Hutchinson estimate ``(U Z^T + Z U^T) / (2 s)``
+    of ``K^-1`` from an ``(n, s)`` probe block ``z`` and ``u = K^-1 z``,
+    ``s >= 1``: O(n^2 s) work instead of the exact kernel's n^3/6. On the
+    card ``n`` must be a multiple of :data:`TILE`. On CPU tensors this is
+    the plain version."""
+    x = as_locations(x)
+    n = x.shape[0]
+    if (u.ndim != 2 or tuple(u.shape) != tuple(z.shape) or u.shape[0] != n
+            or u.shape[1] < 1 or tuple(alpha.shape) != (n,)):
+        raise ValueError(f"u {tuple(u.shape)} / z {tuple(z.shape)} / alpha "
+                         f"{tuple(alpha.shape)} for n = {n}")
+    if x.device.type == "cpu":
+        return logml_probe_grads_reference(kernel, x, alpha, u, z)
+    xc, table, params, partials, out = _prepare(
+        kernel, x, alpha, [(u, "u", 2), (z, "z", 2)])
+    fn = _build.function("logml_probe_grad", "gpx_logml_probe_grad",
+                         _PROBE_ARGS)
+    status = fn(_build.ptr(u), u.stride(0), _build.ptr(z), z.stride(0),
+                u.shape[1], _build.ptr(xc), xc.shape[1], _build.ptr(alpha), n,
+                _build.ptr(table), table.shape[0] // 2, _build.ptr(params),
+                params.shape[0], _build.ptr(partials), _build.ptr(out),
+                _build.stream(x.device))
+    _build.check(status, "logml_probe_grads")
+    logml_probe_grads.launches += 1
+    return _unpack(kernel, out)
+
+
+logml_probe_grads.launches = 0

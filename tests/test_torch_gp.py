@@ -122,9 +122,11 @@ def test_numpy_round_trip():
 
 
 def test_unported_options_raise():
+    """``fast_gradients`` is not ported; ``method="hybrid"`` is
+    (tests/test_torch_hybrid.py), and an unknown method stays an error."""
     _, tp = _pair()
     x, y = torch.zeros(4, 1, dtype=torch.float64), torch.zeros(4, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
-        gp.logml_value_and_grad(tp, x, y, method="hybrid")
-    with pytest.raises(NotImplementedError):
         gp.logml_value_and_grad(tp, x, y, fast_gradients=True)
+    with pytest.raises(ValueError):
+        gp.logml_value_and_grad(tp, x, y, method="exact")

@@ -14,6 +14,7 @@ import gpx
 import gpx_torch as gt
 from gpx.ops.pallas_chol import chol_inv as jax_chol_inv
 from gpx.ops.pallas_chol import chol_inv_tile as jax_chol_inv_tile
+from gpx.ops.pallas_chol import chol_inv_tile_off as jax_chol_inv_tile_off
 from gpx.ops.pallas_gram import pallas_gram
 from gpx.ops.pallas_trmm import syrk_lower as jax_syrk_lower
 from gpx.ops.pallas_trmm import trmm as jax_trmm
@@ -84,6 +85,21 @@ def test_chol_inv_tile_reference_matches_pallas(rng):
     gl, gm = cuda_chol.chol_inv_tile(torch.as_tensor(a))
     assert _rel(gl, wl) < 1e-4
     assert _rel(gm, wm) < 1e-4
+
+
+def test_chol_inv_tile_off_reference_matches_pallas(rng):
+    """The leaf read in place at (128, 128) of a 256^2 buffer: it writes
+    into the given outputs and agrees with gpx's offset leaf."""
+    a = _spd(rng, 256)
+    wl, wm = jax_chol_inv_tile_off(jnp.asarray(a), 128, 128, interpret=True)
+    src = torch.as_tensor(a)
+    l_out, m_out = torch.zeros(128, 128), torch.zeros(128, 128)
+    gl, gm = cuda_chol.chol_inv_tile_off(src, 128, 128, l_out=l_out, m_out=m_out)
+    assert gl is l_out and gm is m_out
+    assert _rel(gl, wl) < 1e-4
+    assert _rel(gm, wm) < 1e-4
+    with pytest.raises(ValueError):
+        cuda_chol.chol_inv_tile_off(src, 192, 128)
 
 
 def test_chol_inv_recursion_matches_pallas(rng):

@@ -18,7 +18,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fused against non-fused times at n = 1024 ... 16384; then the same case
    through ``method="hybrid"`` (three probe seeds, and n = 9000), its
    launch counts, ms/eval and the times of its stages;
-4. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+4. the matrix-free path (``phase_iterative``, the case of
+   ``examples/large_n.py``): the two matvec kernels against their plain
+   versions, ``gp_iterative.logml_value_and_grad_iterative`` at N = 32,768
+   (three seeds) against the dense float64 logML and against the same
+   estimator in float64, ``fit_iterative`` against a dense float64
+   posterior, one eval at N = 131,072 with its memory, launch counts, stage
+   times and ms/eval;
+5. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -36,15 +43,18 @@ import time
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): FP32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores, and HBM3 bandwidth; exponentials on the special-function
+# units, 16 per clock per SM x 132 SMs x 1.98 GHz (boost clock)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_SFU = 16 * 132 * 1.98e9
 
 N_BENCH = 16384
 
 
-def bound_ms(*, flops: float = 0.0, nbytes: float = 0.0):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(*, flops: float = 0.0, nbytes: float = 0.0, exps: float = 0.0):
+    t_ops = max(flops / PEAK_FP32_FLOPS, exps / PEAK_SFU)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -64,9 +74,32 @@ def time_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _median_ms(torch, fn, reps: int = 5):
+    """The median device time of ``reps`` calls of ``fn``, each timed alone
+    by CUDA events, and the times rounded to 0.01 ms."""
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms), [round(t, 2) for t in ms]
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def _record(name, source, replaces, err, ms, plain_ms, bound, lib_ms):
+    """One kernel's entry of the ``kernels`` line (launches set later)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms}
 
 
 def rel_max(got, want) -> float:
@@ -99,11 +132,8 @@ def phase_kernels(torch, gt):
     records = {}
 
     def record(name, source, replaces, err, ms, plain_ms, bound, lib_ms):
-        records[name] = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": lib_ms}
+        records[name] = _record(name, source, replaces, err, ms, plain_ms,
+                                bound, lib_ms)
         print(f"  {name}: err {err:.3e}  kernel {ms:.3f} ms  plain "
               f"{plain_ms:.3f} ms  bound {bound[0]:.3f} ms ({bound[1]})  "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 3)} ms",
@@ -526,18 +556,9 @@ def phase_bench(torch, gt, records):
     # f32 Cholesky of a cond ~ 1e4 Gram without the logdet correction
     check(ad_rel[0] <= 1e-3 and ad_rel[3] <= 1e-3, "autodiff disagrees")
 
-    ms = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        gp.logml_value_and_grad(params, x, y)
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-    eval_ms = statistics.median(ms)
-    print(f"bench ms/eval (median of 5, CUDA events): {eval_ms:.2f} "
-          f"{[round(t, 2) for t in ms]}", flush=True)
+    eval_ms, ms = _median_ms(torch, lambda: gp.logml_value_and_grad(params, x, y))
+    print(f"bench ms/eval (median of 5, CUDA events): {eval_ms:.2f} {ms}",
+          flush=True)
 
     # fused against non-fused route by n: these set gp.FUSED_MIN_N
     crossover = {}
@@ -613,18 +634,10 @@ def phase_hybrid(torch, gt, records):
     _hold_hybrid(gt, value, grads, _f64(torch, gt, gp, x[:n_off], y[:n_off]),
                  "hybrid n=9000")
 
-    ms = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        gp.logml_value_and_grad(params, x, y, method="hybrid", probes=64)
-        end.record()
-        torch.cuda.synchronize()
-        ms.append(start.elapsed_time(end))
-    eval_ms = statistics.median(ms)
-    print(f"hybrid ms/eval (median of 5, CUDA events): {eval_ms:.2f} "
-          f"{[round(t, 2) for t in ms]}", flush=True)
+    eval_ms, ms = _median_ms(torch, lambda: gp.logml_value_and_grad(
+        params, x, y, method="hybrid", probes=64))
+    print(f"hybrid ms/eval (median of 5, CUDA events): {eval_ms:.2f} {ms}",
+          flush=True)
     return {"ms_per_eval": eval_ms, "launches": launches,
             "worst (value abs, h abs, sigma rel, white rel)": worst,
             "stages_ms": _hybrid_stages(torch, gt, gp, params.kernel, x, y)}
@@ -712,6 +725,635 @@ def _against_f64(torch, gt, gp, x, y, value, grads, label):
     return v_rel, rel, abs(got[0] - want[0])
 
 
+# -- phase 4: the matrix-free path -------------------------------------------
+
+DEV = "cuda"          # the rehearsal on the CPU sets "cpu" and small sizes
+N_IT = 32768          # examples/large_n.py's iterative case
+N_SCALE = 131072      # dense K would be 64 GiB in float32
+N_TEST = 1024         # fit_iterative's test points
+N_RAGGED, N_DUP, N_CROSS = 4000, 2001, (1000, 3001)
+CHECK_ROWS = 4096     # rows of the plain version held at N_SCALE
+# examples/large_n.py's run_iterative settings
+ITER = dict(n_probes=8, lanczos_iters=32, cg_tol=1e-4, precond_rank=64)
+EPS32 = 1.1920928955078125e-07
+
+
+def _iter_case(n):
+    """examples/large_n.py's data: numpy seed 0, x sorted U(-10, 10) of
+    shape (n, 1), y = sin x + 0.7 N(0, 1), both float32."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(-10.0, 10.0, size=(n, 1)), axis=0).astype(np.float32)
+    y = (np.sin(x[:, 0]) + rng.normal(size=n) * 0.7).astype(np.float32)
+    return x, y
+
+
+def _iter_kernel(gt, dtype=None):
+    return gt.se(2.0, 3.0, device=DEV, dtype=dtype) + gt.white(
+        0.5, device=DEV, dtype=dtype)
+
+
+def _sync(torch):
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _iter_counters():
+    from gpx_torch.ops import cuda_gram, cuda_matvec
+
+    return {"gram_matvec": cuda_matvec.gram_matvec_cuda,
+            "cross_matvec": cuda_matvec.cross_matvec_cuda,
+            "gram": cuda_gram.gram_cuda}
+
+
+def _count(torch, fn):
+    """``fn()`` with every matvec and Gram launch counter, and the calls of
+    the torch route of the matvec, set to 0 just before and read just
+    after."""
+    from gpx_torch.ops import cuda_matvec
+
+    counters = _iter_counters()
+    for c in counters.values():
+        c.launches = 0
+    cuda_matvec._gram_matvec_torch.calls = 0
+    out = fn()
+    _sync(torch)
+    counts = {k: c.launches for k, c in counters.items()}
+    counts["torch_route_calls"] = cuda_matvec._gram_matvec_torch.calls
+    return out, counts
+
+
+def _hold_matvec(torch, label, got, want, scale) -> float:
+    """A matvec kernel's float32 output against its plain version in
+    float64 on the same inputs: every output within 4 f32 ulps of its sum
+    of |terms| sum_j |K_ij| |V_jr| (``scale``). Each entry k(r2) carries a
+    few ulps (the f32 difference, expf, r2 / sigma^2 scaling the
+    argument's rounding) with random signs; the tile sums are float over
+    32 terms and double across tiles. Returns the largest absolute error."""
+    err = (got.double() - want).abs()
+    worst = float((err / scale).max()) / EPS32
+    print(f"{label}: max abs err {float(err.max()):.3e}, worst {worst:.3f} "
+          f"f32 ulps of its sum of |terms| (limit 4), output scale "
+          f"{float(want.abs().max()):.3e}", flush=True)
+    check(bool((err <= 4.0 * EPS32 * scale).all()), f"{label} disagrees")
+    return float(err.max())
+
+
+def _matvec_checks(torch, gt, records):
+    """Both kernels against their plain versions at the path's shapes, the
+    ragged and D = 12 shapes, and a 4096-row slice at N = 131,072; their
+    records (kernel, plain, library ms and bounds at N = 32,768)."""
+    from gpx_torch.ops import cuda_gram
+    from gpx_torch.ops import cuda_matvec as cm
+
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    kern, k64 = _iter_kernel(gt), _iter_kernel(gt, torch.float64)
+    nug = 1e-3
+    errs = {"gram_matvec": 0.0, "cross_matvec": 0.0}
+
+    def gram_case(label, x, v, rows=None):
+        xc = x - x.mean(dim=0, keepdim=True)
+        got = cm.gram_matvec_cuda(kern, xc, v, nugget=nug)
+        x64, v64 = xc.double(), v.double()
+        if rows is None:
+            want = cm._gram_matvec_torch(k64, x64, v64, nug)
+            scale = cm._gram_matvec_torch(k64, x64, v64.abs(), nug)
+        else:  # the first rows: the cross form plus the nugget
+            want = cm._cross_matvec_torch(k64, x64[:rows], x64, v64) + nug * v64[:rows]
+            scale = (cm._cross_matvec_torch(k64, x64[:rows], x64, v64.abs())
+                     + nug * v64[:rows].abs())
+            got = got[:rows]
+        errs["gram_matvec"] = max(errs["gram_matvec"],
+                                  _hold_matvec(torch, label, got, want, scale))
+
+    def cross_case(label, x1, x2, v):
+        c = x2.mean(dim=0, keepdim=True)
+        x1c, x2c = x1 - c, x2 - c
+        got = cm.cross_matvec_cuda(kern, x1c, x2c, v)
+        want = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(), v.double())
+        scale = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(),
+                                       v.double().abs())
+        errs["cross_matvec"] = max(errs["cross_matvec"],
+                                   _hold_matvec(torch, label, got, want, scale))
+
+    x = torch.as_tensor(_iter_case(N_IT)[0], device=DEV)
+    for r in (1, 8, 9):
+        v = torch.randn((N_IT, r), generator=gen, device=DEV)
+        gram_case(f"gram_matvec n={N_IT} d=1 r={r}", x, v)
+    xr = torch.rand((N_RAGGED, 2), generator=gen, device=DEV) * 20.0 - 10.0
+    gram_case(f"gram_matvec n={N_RAGGED} d=2 r=3 (ragged)", xr,
+              torch.randn((N_RAGGED, 3), generator=gen, device=DEV))
+    # D = 12: broadcast differences keep duplicated points at r2 == 0
+    xd = torch.randn((N_DUP, 12), generator=gen, device=DEV)
+    nd = N_DUP // 4
+    xd[N_DUP - nd:] = xd[:nd]
+    gram_case(f"gram_matvec n={N_DUP} d=12 r=2 ({nd} duplicated points)", xd,
+              torch.randn((N_DUP, 2), generator=gen, device=DEV))
+    xs = torch.linspace(-10.0, 10.0, N_TEST, device=DEV)[:, None]
+    cross_case(f"cross_matvec ({N_TEST}, {N_IT}) d=1 r=1", xs, x,
+               torch.randn((N_IT, 1), generator=gen, device=DEV))
+    n1, n2 = N_CROSS
+    x2 = torch.rand((n2, 2), generator=gen, device=DEV) * 20.0 - 10.0
+    x1 = torch.cat([x2[:100], torch.rand((n1 - 100, 2), generator=gen,
+                                         device=DEV) * 20.0 - 10.0])
+    cross_case(f"cross_matvec ({n1}, {n2}) d=2 r=3 (ragged, 100 duplicates "
+               f"across the sets)", x1, x2,
+               torch.randn((n2, 3), generator=gen, device=DEV))
+    xbig = torch.as_tensor(_iter_case(N_SCALE)[0], device=DEV)
+    vbig = torch.randn((N_SCALE, 9), generator=gen, device=DEV)
+    gram_case(f"gram_matvec n={N_SCALE} d=1 r=9 (first {CHECK_ROWS} rows)",
+              xbig, vbig, rows=CHECK_ROWS)
+
+    # times at the path's shapes: CG's width r = 9 (alpha + 8 probes);
+    # the library call is one torch.matmul on a prebuilt K, which leaves
+    # out the Gram build: no single PyTorch call forms K V without K
+    xc = x - x.mean(dim=0, keepdim=True)
+    times = {}
+    for r in (1, 8, 9):
+        v = torch.randn((N_IT, r), generator=gen, device=DEV)
+        times[r] = time_ms(torch, lambda: cm.gram_matvec_cuda(kern, xc, v, nugget=nug),
+                           reps=20)
+    plain = time_ms(torch, lambda: cm._gram_matvec_torch(kern, xc, v, nug), reps=3)
+    kmat = cuda_gram.gram_cuda(kern, xc, nugget=nug)
+    lib = time_ms(torch, lambda: torch.matmul(kmat, v), reps=20)
+    del kmat
+    xbc = xbig - xbig.mean(dim=0, keepdim=True)
+    big_ms = time_ms(torch, lambda: cm.gram_matvec_cuda(kern, xbc, vbig, nugget=nug),
+                     reps=3)
+    bound = bound_ms(flops=2.0 * N_IT * N_IT * 9, exps=float(N_IT) ** 2,
+                     nbytes=4.0 * (N_IT + 2 * 9 * N_IT))
+    print(f"gram_matvec n={N_IT} d=1: kernel r=1 {times[1]:.3f} ms, r=8 "
+          f"{times[8]:.3f} ms, r=9 {times[9]:.3f} ms; plain (r=9, float32) "
+          f"{plain:.3f} ms; torch.matmul on a prebuilt K (r=9, Gram build "
+          f"excluded) {lib:.3f} ms; bound (r=9) {bound[0]:.3f} ms ({bound[1]}); "
+          f"n={N_SCALE} r=9 {big_ms:.3f} ms", flush=True)
+    records["gram_matvec"] = _record(
+        "gram_matvec", "gpx_torch/csrc/matvec.cu", "gpx/ops/pallas_matvec.py:73",
+        errs["gram_matvec"], times[9], plain, bound, lib)
+
+    xsc, xc2 = xs - x.mean(dim=0, keepdim=True), xc
+    alpha = torch.randn((N_IT, 1), generator=gen, device=DEV)
+    ms = time_ms(torch, lambda: cm.cross_matvec_cuda(kern, xsc, xc2, alpha), reps=20)
+    plain = time_ms(torch, lambda: cm._cross_matvec_torch(kern, xsc, xc2, alpha), reps=5)
+    kx = cuda_gram.gram_cuda(kern, xsc, xc2)
+    lib = time_ms(torch, lambda: torch.matmul(kx, alpha), reps=20)
+    bound = bound_ms(flops=2.0 * N_TEST * N_IT, exps=float(N_TEST) * N_IT,
+                     nbytes=4.0 * (N_TEST + 2 * N_IT + N_TEST))
+    print(f"cross_matvec ({N_TEST}, {N_IT}) r=1: kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, torch.matmul on a prebuilt K {lib:.3f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+    records["cross_matvec"] = _record(
+        "cross_matvec", "gpx_torch/csrc/matvec.cu", "gpx/ops/pallas_matvec.py:175",
+        errs["cross_matvec"], ms, plain, bound, lib)
+    return {"gram_matvec_ms": times, "gram_matvec_ms_n131072_r9": big_ms}
+
+
+def _dense_gram64(torch, kernel, x, nugget, block=4096):
+    """K(x, x) + nugget I in float64, built in row blocks (the duplicate
+    of a point in its own row has r2 == 0 exactly, so White fires)."""
+    from gpx_torch.ops.cuda_gram import gram_reference
+
+    n = x.shape[0]
+    k = torch.empty((n, n), dtype=torch.float64, device=x.device)
+    for i in range(0, n, block):
+        k[i:i + block] = gram_reference(kernel, x[i:i + block], x)
+    k.diagonal().add_(nugget)
+    return k
+
+
+def _dense_logml64(torch, gt, x, y, nugget):
+    """The dense float64 logML, its kernel gradient (sum_ij W_ij dK_ij /
+    dtheta with W = (alpha alpha^T - K^-1) / 2, by autograd of the Gram's
+    row blocks) and alpha = K^-1 y; K takes 8 GiB at N = 32,768."""
+    from gpx_torch.ops.cuda_gram import gram_reference
+
+    k64 = _iter_kernel(gt, torch.float64)
+    x64, y64 = x.double(), y.double()
+    n = x.shape[0]
+    lmat = torch.linalg.cholesky(_dense_gram64(torch, k64, x64, nugget))
+    alpha = torch.cholesky_solve(y64[:, None], lmat)[:, 0]
+    value = (-0.5 * float(y64 @ alpha) - float(torch.log(lmat.diagonal()).sum())
+             - 0.5 * n * math.log(2.0 * math.pi))
+    w = torch.cholesky_inverse(lmat)
+    del lmat
+    w.mul_(-0.5).addr_(alpha, alpha, alpha=0.5)
+    leaves = [t.detach().requires_grad_() for t in gt.params.leaves(k64)]
+    kern = gt.params.unflatten(k64, leaves)
+    grads = [0.0] * len(leaves)
+    with torch.enable_grad():
+        for i in range(0, n, 4096):
+            kb = gram_reference(kern, x64[i:i + 4096], x64)
+            g = torch.autograd.grad(torch.sum(w[i:i + 4096] * kb), leaves)
+            grads = [a + float(b) for a, b in zip(grads, g)]
+    del w
+    return value, grads, alpha
+
+
+def _iter_noise(torch, gi, seed, n, s):
+    """The base noise logml_value_and_grad_iterative draws from a
+    generator seeded ``seed``: the Rademacher probe base, then the Normal
+    SLQ base (with a preconditioner), float32, in that order."""
+    key = torch.Generator(device=DEV).manual_seed(seed)
+    return (gi._rademacher(key, (n, s), torch.float32, DEV),
+            gi._normal(key, (n, s), torch.float32, DEV))
+
+
+def _flat(gt, res):
+    return [float(res.value)] + [float(t) for t in gt.params.leaves(res.grads.kernel)]
+
+
+def _hold_logml(label, got, f64, dense):
+    """One seed's float32 result against the dense float64 logML and
+    against the same estimator in float64 on the same noise.
+
+    Dense limits, the JAX package's own tests of this path
+    (test_iterative.py): value within 5e-3 |value| + 0.5, every kernel
+    gradient within 0.3 |g| + 0.5. They bound the estimator's error at 8
+    probes as much as the port's: where the float32 result misses one and
+    the float64 run of the same estimator misses it too, the miss is the
+    estimator's variance, and the limit becomes twice the float64 run's
+    error.
+
+    Against the same estimator in float64 (the port's float32 rounding
+    alone): the float32 envelope the JAX package recorded at N = 16k
+    (PERF_TPU.md: value 7.9e-5 relative; gradients 6.5e-6 White, 5.5e-3
+    sigma relative, 0.25 absolute on h, a near-cancellation), rounded up
+    as phase 3 holds the exact path: value 1e-4 relative; h 0.5 absolute;
+    sigma 1e-2 and White 1e-3 relative (the probe solves stop at an
+    absolute cg_tol, 1e-4 against the probes' norm of ~180), each relative
+    to the larger of the float64 estimate and the dense value."""
+    names = ("value", "h", "sigma", "white")
+    worst = {}
+    for i, nm in enumerate(names):
+        g, w, d = got[i], f64[i], dense[i]
+        limit = (5e-3 * abs(d) + 0.5) if i == 0 else (0.3 * abs(d) + 0.5)
+        e32, e64 = abs(g - d), abs(w - d)
+        why = "JAX tests' limit"
+        if e32 > limit and e64 > limit:
+            limit, why = 2.0 * e64, "2 x the float64 estimator's error (variance at 8 probes)"
+        same = abs(g - w)
+        mag = max(abs(w), abs(d))  # a noisy estimate may sit near zero
+        same_limit = {"value": 1e-4 * mag, "h": 0.5, "sigma": 1e-2 * mag,
+                      "white": 1e-3 * mag}[nm]
+        print(f"{label} {nm}: f32 {g:.8e} f64-estimator {w:.8e} dense-f64 {d:.8e}"
+              f" | f32-dense {e32:.3e} (limit {limit:.3e}, {why}); f64-dense "
+              f"{e64:.3e}; f32-f64 same noise {same:.3e} (limit {same_limit:.3e})",
+              flush=True)
+        check(math.isfinite(g), f"{label} {nm}: not finite")
+        check(e32 <= limit, f"{label} {nm}: outside the dense limit")
+        check(same <= same_limit, f"{label} {nm}: float32 differs from the "
+              f"same estimator in float64")
+        worst[nm] = {"dense": e32, "f64_estimator": same}
+    return worst
+
+
+def phase_iterative(torch, gt, records):
+    """The matrix-free path at examples/large_n.py's case: kernel checks,
+    the logML against float64 (three seeds), fit_iterative against a dense
+    float64 posterior, the N = 131,072 run, launch counts, stage times and
+    ms/eval."""
+    from gpx_torch.models import gp, gp_iterative as gi
+    from gpx_torch.ops import cuda_matvec as cm
+    from gpx_torch.ops.matvec import cross_matvec, gram_matvec
+
+    out = {"kernels": _matvec_checks(torch, gt, records)}
+    _free(torch)
+    x_np, y_np = _iter_case(N_IT)
+    params = gt.Parameters(mean=gt.zero(), kernel=_iter_kernel(gt))
+    x = torch.as_tensor(x_np, device=DEV)
+    y = torch.as_tensor(y_np, device=DEV)
+    nug = gp.LOGML_NUGGET
+
+    # -- one eval of the logML through the public entry point, counted; on
+    # the card from numpy arrays, which go to the card by default ---------
+    xin, yin = (x_np, y_np) if DEV == "cuda" else (x, y)
+    res, counts = _count(torch, lambda: gi.logml_value_and_grad_iterative(
+        params, xin, yin, torch.Generator(device=DEV).manual_seed(0), **ITER))
+    print(f"iterative logML n={N_IT} launches: {json.dumps(counts)}; CG "
+          f"{res.cg_iters} iterations, converged {res.cg_converged}", flush=True)
+    check(counts["gram_matvec"] > 0, "gram_matvec was not launched in the logML")
+    check(counts["torch_route_calls"] == 2, "the logML called the torch route of "
+          "the matvec other than twice (the gradient contraction)")
+    records["gram_matvec"]["launches"] = counts["gram_matvec"]
+    out["logml_launches"] = counts
+
+    # -- the logML against float64, three seeds -------------------------
+    dense_v, dense_g, alpha64 = _dense_logml64(torch, gt, x, y, nug)
+    dense = [dense_v] + dense_g
+    quad64 = float(y.double() @ alpha64)
+    a_norm = float(torch.linalg.vector_norm(alpha64))
+    del alpha64
+    _free(torch)
+    p64 = gt.Parameters(mean=gt.zero(), kernel=_iter_kernel(gt, torch.float64))
+    worst = {}
+    for seed in (0, 1, 2):
+        key = torch.Generator(device=DEV).manual_seed(seed)
+        r32 = gi.logml_value_and_grad_iterative(params, x, y, key, **ITER)
+        check(r32.cg_converged, f"seed {seed}: CG did not converge")
+        pn, sn = _iter_noise(torch, gi, seed, N_IT, ITER["n_probes"])
+        core = dict(lanczos_iters=ITER["lanczos_iters"], cg_tol=ITER["cg_tol"],
+                    precond_rank=ITER["precond_rank"])
+        if seed == 0:  # the replayed noise is the public function's
+            again = gi._logml_value_and_grad_iterative(
+                params, x, y, probe_noise=pn, slq_noise=sn, **core)
+            check(_flat(gt, again) == _flat(gt, r32), "replayed noise differs")
+        r64 = gi._logml_value_and_grad_iterative(
+            p64, x.double(), y.double(), probe_noise=pn.double(),
+            slq_noise=sn.double(), **core)
+        print(f"seed {seed}: CG iterations f32 {r32.cg_iters} f64 {r64.cg_iters}",
+              flush=True)
+        for nm, e in _hold_logml(f"logml n={N_IT} seed {seed}", _flat(gt, r32),
+                                 _flat(gt, r64), dense).items():
+            w = worst.setdefault(nm, {"dense": 0.0, "f64_estimator": 0.0})
+            for k in w:
+                w[k] = max(w[k], e[k])
+    out["logml_worst"] = worst
+
+    # alpha's backward error is held to one f32 ulp (see _scale_run).
+    # The quadratic term: CG stops when every column's recursive residual
+    # is within cg_tol, and alpha's error in y^T alpha is r^T alpha64 with r
+    # = y - K alpha the true residual: cg_tol ||alpha64|| were the true
+    # residual at the tolerance. Allow twice that. In float32 the true
+    # residual stays at the float32 floor (printed, ~2e-2 here, far above
+    # cg_tol), but its rounding noise is uncorrelated with alpha64, so the
+    # product stays near the tolerance's share
+    pn, _ = _iter_noise(torch, gi, 0, N_IT, ITER["n_probes"])
+    a32, iters, conv, cg_ms = _cg_stage(torch, gi, params, x, y, pn)
+    quad32 = float(y.double() @ a32.double())
+    res_true = _true_residual(torch, gt, x, y, a32, nug)
+    q_limit = 2.0 * ITER["cg_tol"] * a_norm
+    print(f"quadratic term n={N_IT}: f32 {quad32:.8e} f64 {quad64:.8e} err "
+          f"{abs(quad32 - quad64):.3e} (limit 2 cg_tol ||alpha|| = {q_limit:.3e});"
+          f" true residual of alpha {res_true[0]:.3e} ({res_true[1]:.3e} of "
+          f"||y||; backward error {res_true[2] / EPS32:.3f} f32 ulps), formed "
+          f"in float64", flush=True)
+    check(abs(quad32 - quad64) <= q_limit, "quadratic term outside its limit")
+    check(res_true[2] <= EPS32, "alpha: backward error above one f32 ulp")
+    out["quad_err"] = abs(quad32 - quad64)
+    out["alpha_true_residual_n32768"] = res_true
+    _free(torch)
+
+    # -- fit_iterative against a dense float64 posterior -----------------
+    xs = torch.linspace(-10.0, 10.0, N_TEST, device=DEV)[:, None]
+    fit_opts = dict(cg_tol=ITER["cg_tol"], precond_rank=ITER["precond_rank"],
+                    variance="exact", variance_block=256)
+    post, counts = _count(torch, lambda: gi.fit_iterative(params, x, y, xs,
+                                                          **fit_opts))
+    print(f"fit_iterative n={N_IT} -> {N_TEST} launches: {json.dumps(counts)}; "
+          f"CG {post.cg_iters} iterations, converged {post.cg_converged}",
+          flush=True)
+    for name in ("gram_matvec", "cross_matvec", "gram"):
+        check(counts[name] > 0, f"fit_iterative did not launch {name}")
+    check(counts["torch_route_calls"] == 0, "fit_iterative called the torch route")
+    check(post.cg_converged, "fit_iterative: CG did not converge")
+    records["cross_matvec"]["launches"] = counts["cross_matvec"]
+    out["fit_launches"] = counts
+    out["fit_err"] = _hold_fit(torch, gt, gi, params, x, y, xs, post, fit_opts)
+    _free(torch)
+
+    # -- stand-alone stages at N = 32,768, each counted ------------------
+    out["stages_ms"] = _iter_stages(torch, gt, gi, cm, params, x, y, xs, pn, iters,
+                                    cg_ms, gram_matvec, cross_matvec)
+
+    # -- ms/eval ---------------------------------------------------------
+    key = torch.Generator(device=DEV).manual_seed(0)
+    out["logml_ms_per_eval"] = _median_ms(torch, lambda: gi.logml_value_and_grad_iterative(
+        params, x, y, key, **ITER))
+    out["fit_ms_per_eval"] = _median_ms(torch, lambda: gi.fit_iterative(
+        params, x, y, xs, **fit_opts))
+    print(f"iterative n={N_IT}: logML ms/eval {out['logml_ms_per_eval'][0]:.2f} "
+          f"{out['logml_ms_per_eval'][1]}; fit_iterative ms/eval "
+          f"{out['fit_ms_per_eval'][0]:.2f} {out['fit_ms_per_eval'][1]} (median "
+          f"of 5, CUDA events)", flush=True)
+    del x, y, xs
+    _free(torch)
+    out["scale"] = _scale_run(torch, gt, gi)
+    return out
+
+
+def _hold_fit(torch, gt, gi, params, x, y, xs, post, fit_opts):
+    """fit_iterative against the dense float64 posterior (PREDICT_NUGGET).
+
+    The example's float32 x holds coincident points (8 pairs at N =
+    32,768). White fires on them, so with the nugget of 1e-6 alpha = K^-1 y
+    carries components of |dy| / (2 nugget) ~ 5e5 along each pair's
+    difference. K(xs, .) cancels them exactly, but not their float32
+    rounding (an ulp of 5e5 is 0.03, and the float32 nugget on 2.5 is 4
+    ulps): that reaches the mean near each pair, in the JAX package's
+    algorithm as here. So on this data the mean is held to 4 f32 ulps of
+    each output's sum of |terms| sum_j |K(s, x_j)| |alpha_j| plus 2e-3, and
+    on the same data with the coincident points merged (alpha then has no
+    such components) to 2e-3 against an output of scale 1: alpha's true
+    residual (the float32 floor, ~2e-2) through predictive weights of
+    2-norm ~1e-2 gives ~1e-4. Variance on both: 1e-4 against an output of
+    ~0.5 (noise plus a small posterior variance); each column is solved to
+    cg_tol, ~1e-6 expected."""
+    from gpx_torch.models import gp
+    from gpx_torch.ops import cuda_matvec as cm
+    from gpx_torch.ops.matvec import gram_matvec
+
+    nug = gp.PREDICT_NUGGET
+    kern = params.kernel
+    pairs = int((x[1:, 0] == x[:-1, 0]).sum())
+    mean64, var64 = _dense_posterior64(torch, gt, x, y, xs, nug)
+    pc = gi._preconditioner(kern, x, ITER["precond_rank"], nug)
+    alpha, _, _ = gi.cg_solve(lambda v: gram_matvec(kern, x, v, nugget=nug), y,
+                              tol=ITER["cg_tol"], precond=pc)
+    c = x.double().mean(dim=0, keepdim=True)
+    scale = cm._cross_matvec_torch(_iter_kernel(gt, torch.float64), xs.double() - c,
+                                   x.double() - c, alpha.double().abs()[:, None])[:, 0]
+    m_err = (post.mean.double() - mean64).abs()
+    v_err = float((post.variance.double() - var64).abs().max())
+    print(f"fit_iterative n={N_IT} ({pairs} coincident pairs) against dense "
+          f"float64: mean max abs err {float(m_err.max()):.3e} (scale "
+          f"{float(mean64.abs().max()):.3f}; limit 4 ulps of sum |K||alpha| + "
+          f"2e-3, largest {float((4 * EPS32 * scale + 2e-3).max()):.3e}, worst "
+          f"use {float((m_err / (4 * EPS32 * scale + 2e-3)).max()):.3f}; |alpha| "
+          f"max {float(alpha.abs().max()):.3e}), variance max abs err "
+          f"{v_err:.3e} (limit 1e-4; range {float(var64.min()):.6f} .. "
+          f"{float(var64.max()):.6f})", flush=True)
+    check(bool((m_err <= 4 * EPS32 * scale + 2e-3).all()),
+          "fit_iterative mean outside its limit")
+    check(v_err <= 1e-4, "fit_iterative variance outside its limit")
+    out = {"pairs": pairs, "mean": float(m_err.max()), "variance": v_err}
+    del mean64, var64, scale
+
+    keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    keep[1:] = x[1:, 0] != x[:-1, 0]
+    xu, yu = x[keep], y[keep]
+    post = gi.fit_iterative(params, xu, yu, xs, **fit_opts)
+    check(post.cg_converged, "fit_iterative (merged points): CG did not converge")
+    mean64, var64 = _dense_posterior64(torch, gt, xu, yu, xs, nug)
+    mu_err = float((post.mean.double() - mean64).abs().max())
+    vu_err = float((post.variance.double() - var64).abs().max())
+    print(f"fit_iterative n={xu.shape[0]} (coincident points merged) against dense "
+          f"float64: mean max abs err {mu_err:.3e} (limit 2e-3), variance max abs "
+          f"err {vu_err:.3e} (limit 1e-4); CG {post.cg_iters} iterations", flush=True)
+    check(mu_err <= 2e-3, "fit_iterative mean (merged points) outside 2e-3")
+    check(vu_err <= 1e-4, "fit_iterative variance (merged points) outside 1e-4")
+    out.update(merged_mean=mu_err, merged_variance=vu_err)
+    return out
+
+
+def _free(torch):
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _cg_stage(torch, gi, params, x, y, pn):
+    """The logML's CG batch on its own (alpha and the 8 preconditioned
+    probes, as the eval solves them): returns (alpha, iterations,
+    converged, ms), the time by CUDA events."""
+    from gpx_torch.models import gp
+    from gpx_torch.ops.matvec import gram_matvec
+
+    pc = gi._preconditioner(params.kernel, x, ITER["precond_rank"], gp.LOGML_NUGGET)
+    rhs = torch.cat([y[:, None], pc.root(pn)], dim=1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sol, iters, conv = gi.cg_solve(
+        lambda v: gram_matvec(params.kernel, x, v, nugget=gp.LOGML_NUGGET), rhs,
+        tol=ITER["cg_tol"], max_iters=1000, precond=pc)
+    end.record()
+    torch.cuda.synchronize()
+    return sol[:, 0], iters, conv, start.elapsed_time(end)
+
+
+def _true_residual(torch, gt, x, y, alpha, nugget):
+    """``(||r||, ||r|| / ||y||, eta)`` for the true residual r = y - (K +
+    nugget I) alpha, formed in float64 through the plain row-blocked
+    matvec, with eta = ||r|| / (|| |K + nugget I| |alpha| || + ||y||) the
+    normwise backward error of alpha as a solution (K >= 0 here)."""
+    from gpx_torch.ops import cuda_matvec as cm
+
+    k64 = _iter_kernel(gt, torch.float64)
+    x64 = x.double() - x.double().mean(dim=0, keepdim=True)
+    a64 = alpha.double()[:, None]
+    r = y.double() - cm._gram_matvec_torch(k64, x64, a64, nugget)[:, 0]
+    rn = float(torch.linalg.vector_norm(r))
+    yn = float(torch.linalg.vector_norm(y.double()))
+    ka = float(torch.linalg.vector_norm(cm._gram_matvec_torch(k64, x64, a64.abs(),
+                                                               nugget)))
+    return rn, rn / yn, rn / (ka + yn)
+
+
+def _dense_posterior64(torch, gt, x, y, xs, nugget):
+    """The dense float64 posterior mean and variance at ``xs`` (Cholesky on
+    the card)."""
+    from gpx_torch.ops.cuda_gram import gram_reference
+
+    k64 = _iter_kernel(gt, torch.float64)
+    x64, xs64 = x.double(), xs.double()
+    lmat = torch.linalg.cholesky(_dense_gram64(torch, k64, x64, nugget))
+    alpha = torch.cholesky_solve(y.double()[:, None], lmat)[:, 0]
+    kxs = gram_reference(k64, x64, xs64)                       # (n, m)
+    mean = kxs.T @ alpha
+    v = torch.linalg.solve_triangular(lmat, kxs, upper=False)
+    var = torch.clamp_min(k64.diag(xs64) - torch.sum(v * v, dim=0), 0.0)
+    return mean, var
+
+
+def _iter_stages(torch, gt, gi, cm, params, x, y, xs, pn, iters, cg_ms,
+                 gram_matvec, cross_matvec):
+    """Stand-alone times of the logML's and the fit's stages at N = 32,768,
+    and the torch route's calls in CG, PCG and Lanczos (must be 0)."""
+    from gpx_torch.models import gp
+
+    nug = gp.LOGML_NUGGET
+    kern = params.kernel
+
+    def matvec(v):
+        return gram_matvec(kern, x, v, nugget=nug)
+
+    pc = gi._preconditioner(kern, x, ITER["precond_rank"], nug)
+    z = pc.root(pn)
+    s = ITER["n_probes"]
+    (_, cg_iters, _, _), c_cg = _count(torch, lambda: _cg_stage(torch, gi, params,
+                                                                 x, y, pn))
+    _, c_pcg = _count(torch, lambda: gi._pcg_tridiag(matvec, z, ITER["lanczos_iters"],
+                                                     pc))
+    _, c_lz = _count(torch, lambda: gi.slq_logdet(
+        matvec, N_IT, torch.Generator(device=DEV).manual_seed(0), n_probes=s,
+        m=ITER["lanczos_iters"]))
+    for label, c in (("CG", c_cg), ("PCG", c_pcg), ("Lanczos", c_lz)):
+        check(c["torch_route_calls"] == 0, f"{label} called the torch route")
+        check(c["gram_matvec"] > 0, f"{label} did not launch gram_matvec")
+    alpha = torch.randn(N_IT, device=DEV)
+    w = torch.randn((N_IT, s), device=DEV)
+
+    def contraction():
+        kl = [t.detach().requires_grad_() for t in gt.params.leaves(kern)]
+        with torch.enable_grad():
+            k2 = gt.params.unflatten(kern, kl)
+            quad = alpha @ cm._gram_matvec_torch(k2, x, alpha[:, None], nug)[:, 0]
+            tr = torch.sum(w * cm._gram_matvec_torch(k2, x, w, nug))
+            return torch.autograd.grad(0.5 * quad - 0.25 * tr, kl)
+
+    xc = x - x.mean(dim=0, keepdim=True)
+    v9 = torch.randn((N_IT, s + 1), device=DEV)
+    stages = {
+        "preconditioner (pivoted Cholesky 64 + QR + eigh)": time_ms(
+            torch, lambda: gi._preconditioner(kern, x, ITER["precond_rank"], nug),
+            reps=3),
+        "cg_solve (r = 9)": cg_ms,
+        "cg_iterations": iters,
+        "cg ms/iteration": cg_ms / max(iters, 1),
+        "gram_matvec kernel alone (r = 9)": time_ms(
+            torch, lambda: cm.gram_matvec_cuda(kern, xc, v9, nugget=nug), reps=10),
+        "pcg_tridiag 32 steps (r = 8)": time_ms(
+            torch, lambda: gi._pcg_tridiag(matvec, z, ITER["lanczos_iters"], pc),
+            reps=3),
+        "gradient contraction (torch route, 2 calls)": time_ms(torch, contraction,
+                                                               reps=3),
+        "cross_matvec (1024 x 32768, r = 1)": time_ms(
+            torch, lambda: cross_matvec(kern, xs, x, alpha), reps=10),
+    }
+    print(f"iterative stages n={N_IT} (ms, stand-alone): {json.dumps(stages)}; "
+          f"launches CG {json.dumps(c_cg)} PCG {json.dumps(c_pcg)} Lanczos "
+          f"{json.dumps(c_lz)}", flush=True)
+    check(cg_iters == iters, "the CG stage is not deterministic")
+    return stages
+
+
+def _scale_run(torch, gt, gi):
+    """One timed eval at N = 131,072; its peak memory must stay below a
+    quarter of the dense float32 K (64 GiB), which shows K never forms."""
+    x_np, y_np = _iter_case(N_SCALE)
+    params = gt.Parameters(mean=gt.zero(), kernel=_iter_kernel(gt))
+    x = torch.as_tensor(x_np, device=DEV)
+    y = torch.as_tensor(y_np, device=DEV)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    key = torch.Generator(device=DEV).manual_seed(0)
+    t0 = time.perf_counter()
+    res = gi.logml_value_and_grad_iterative(params, x, y, key, **ITER)
+    _sync(torch)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    dense = 4.0 * N_SCALE * N_SCALE
+    pn, _ = _iter_noise(torch, gi, 0, N_SCALE, ITER["n_probes"])
+    alpha, iters, conv, _ = _cg_stage(torch, gi, params, x, y, pn)
+    res_true = _true_residual(torch, gt, x, y, alpha, 1e-3)
+    print(f"scale n={N_SCALE}: one eval {secs:.2f} s; CG {res.cg_iters} "
+          f"iterations, converged {res.cg_converged}; value {float(res.value):.6e}"
+          f"; grads {[round(float(t), 4) for t in gt.params.leaves(res.grads.kernel)]}; "
+          f"true residual of alpha (float64) {res_true[0]:.3e} = {res_true[1]:.3e} "
+          f"of ||y||, backward error {res_true[2] / EPS32:.3f} f32 ulps; peak memory {peak / 2**30:.2f} GiB (limit a quarter of the "
+          f"dense K, {dense / 4 / 2**30:.0f} GiB)", flush=True)
+    check(math.isfinite(float(res.value)), "scale run: value not finite")
+    check(res.cg_converged, "scale run: CG did not converge")
+    check(peak < dense / 4, "scale run: peak memory reaches a quarter of the dense K")
+    # CG's flag reads its recursive residual, as gpx's does; the true
+    # residual of a float32 alpha cannot reach the absolute cg_tol here
+    # (one f32 ulp of || |K| |alpha| || is ~0.5 at N = 32,768). Hold alpha's
+    # backward error instead: within one f32 ulp is a solution to float32
+    # precision (0.03-0.05 ulps measured on an H100)
+    check(res_true[2] <= EPS32, "scale run: alpha's backward error above one ulp")
+    return {"seconds": secs, "cg_iters": res.cg_iters,
+            "cg_converged": res.cg_converged, "peak_gib": peak / 2**30,
+            "alpha_true_residual": res_true}
+
+
 def main() -> int:
     import torch
 
@@ -728,10 +1370,12 @@ def main() -> int:
     summary["hybrid"] = phase_hybrid(torch, gt, records)
     print(f"ms/eval at N = {N_BENCH}: exact {summary['ms_per_eval']:.2f}  "
           f"hybrid {summary['hybrid']['ms_per_eval']:.2f}", flush=True)
+    summary["iterative"] = phase_iterative(torch, gt, records)
     print("summary: " + json.dumps(summary), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     order = ("gram", "trmm", "syrk_lower", "chol_inv_tile", "chol_inv_tile_off",
-             "logml_kernel_grads", "logml_probe_grads")
+             "logml_kernel_grads", "logml_probe_grads", "gram_matvec",
+             "cross_matvec")
     print(json.dumps({"kernels": [records[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

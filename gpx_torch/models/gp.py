@@ -27,7 +27,6 @@ from gpx_torch.ops.chol import (
     back_solve, cholesky, forward_solve, spd_inverse_from_chol,
 )
 from gpx_torch.kernels import Ard, Sum, has_white, split_noise
-from gpx_torch.models.gp_iterative import pivoted_cholesky
 from gpx_torch.ops.cuda_chol import (
     LEAF, chol_inv, spine_solve_lower, spine_solve_lower_t,
 )
@@ -39,6 +38,7 @@ from gpx_torch.ops.gram import gram, uses_cuda_kernel
 from gpx_torch.params import Parameters, leaves, unflatten
 
 LOGML_NUGGET = 1e-3  # the reference's Tikhonov nugget (GaussianProcess.scala:117)
+PREDICT_NUGGET = 1e-6  # the reference's prediction nugget (Predict.scala:67)
 
 # Smallest n that takes the fused route: chip_smoke.py times both routes
 # at n = 1024 ... 16384 on the card. On an H100 (700 W) the fused route
@@ -326,6 +326,8 @@ def _hybrid_deflation(kernel, x_c, z, solve, n: int, deflate: int | None):
     deflate = int(min(deflate, n))
     if deflate == 0 or smooth is None:
         return solve(z), None
+    from gpx_torch.models.gp_iterative import pivoted_cholesky
+
     l_r = pivoted_cholesky(smooth, x_c[:n], deflate)
     q = F.pad(torch.linalg.qr(l_r.to(z.dtype))[0], (0, 0, 0, z.shape[0] - n))
     qtz = q.T @ z

@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gpx_torch_kernels"
-SOURCES = ("gram", "trmm", "chol_inv_tile", "logml_grad", "logml_probe_grad")
+SOURCES = ("gram", "trmm", "chol_inv_tile", "logml_grad", "logml_probe_grad",
+           "matvec")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

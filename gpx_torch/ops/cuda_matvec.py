@@ -89,9 +89,7 @@ def gram_matvec_cuda(kernel, x, v2, *, nugget: float = 0.0):
     :func:`_gram_matvec_torch`."""
     if x.device.type == "cpu":
         return _gram_matvec_torch(kernel, x, v2, nugget)
-    out = _launch(kernel, x, x, v2, nugget, symmetric=True)
-    gram_matvec_cuda.launches += 1
-    return out
+    return _launch(kernel, x, x, v2, nugget, symmetric=True)
 
 
 gram_matvec_cuda.launches = 0
@@ -103,9 +101,7 @@ def cross_matvec_cuda(kernel, x1, x2, v2):
     tensors this is :func:`_cross_matvec_torch`."""
     if x1.device.type == "cpu":
         return _cross_matvec_torch(kernel, x1, x2, v2)
-    out = _launch(kernel, x1, x2, v2, 0.0, symmetric=False)
-    cross_matvec_cuda.launches += 1
-    return out
+    return _launch(kernel, x1, x2, v2, 0.0, symmetric=False)
 
 
 cross_matvec_cuda.launches = 0
@@ -145,4 +141,5 @@ def _launch(kernel, x1, x2, v2, nugget, *, symmetric):
                 int(symmetric), _build.ptr(partials), _build.ptr(out),
                 out.stride(0), _build.stream(dev))
     _build.check(status, "gram_matvec" if symmetric else "cross_matvec")
+    (gram_matvec_cuda if symmetric else cross_matvec_cuda).launches += 1
     return out

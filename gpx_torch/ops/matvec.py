@@ -3,11 +3,12 @@
 
 ``gram_matvec`` and ``cross_matvec`` compute ``K V`` without forming K, so
 the iterative path (:mod:`gpx_torch.models.gp_iterative`) needs O(N (D + R))
-memory. A float32 CUDA tensor with a stationary kernel the CUDA device
-functions support goes to the CUDA kernel (:mod:`gpx_torch.ops.cuda_matvec`),
-at any N and any number of columns; everything else, float64 and kernels
-that are not Pallas-safe included, takes the plain row-blocked torch route.
-A build or launch error raises.
+memory. A float32 CUDA tensor with a stationary, Pallas-safe kernel goes to
+the CUDA kernel (:mod:`gpx_torch.ops.cuda_matvec`), at any N and any number
+of columns, and raises ``NotImplementedError`` where the CUDA term table
+does not hold the kernel yet. CPU tensors, float64, and kernels that are
+not stationary or not Pallas-safe (which the JAX package sends to XLA too)
+take the plain row-blocked torch route. A build or launch error raises.
 """
 
 from __future__ import annotations
@@ -20,7 +21,21 @@ from gpx_torch.ops.cuda_matvec import (
     gram_matvec_cuda,
 )
 from gpx_torch.ops.distance import as_locations
-from gpx_torch.ops.gram import uses_cuda_kernel
+
+
+def _uses_cuda_kernel(kernel, x) -> bool:
+    """Whether the product goes to the CUDA kernel: the JAX package's gate
+    (stationary and Pallas-safe) for a float32 CUDA tensor. Such a kernel
+    that the term table lacks raises rather than run the O(N^2) plain
+    route at every solver step."""
+    if not (x.device.type == "cuda" and x.dtype == torch.float32
+            and kernel.is_stationary and kernel.pallas_safe):
+        return False
+    if not kernel.cuda_supported:
+        raise NotImplementedError(
+            f"the matvec on the card needs the CUDA term table to hold "
+            f"{type(kernel).__name__} (not ported yet)")
+    return True
 
 
 def _as_columns(v):
@@ -36,7 +51,7 @@ def gram_matvec(kernel, x, v, *, nugget: float = 0.0):
     # rounding out of the float32 r2
     x = x - x.mean(dim=0, keepdim=True).detach()
     v2, squeeze = _as_columns(v)
-    if uses_cuda_kernel(kernel, x):
+    if _uses_cuda_kernel(kernel, x):
         out = gram_matvec_cuda(kernel, x, v2.to(torch.float32),
                                nugget=nugget).to(v2.dtype)
     else:
@@ -53,7 +68,7 @@ def cross_matvec(kernel, x1, x2, v):
     center = x2.mean(dim=0, keepdim=True).detach()
     x1, x2 = x1 - center, x2 - center
     v2, squeeze = _as_columns(v)
-    if uses_cuda_kernel(kernel, x1):
+    if _uses_cuda_kernel(kernel, x1):
         out = cross_matvec_cuda(kernel, x1, x2, v2.to(torch.float32)).to(v2.dtype)
     else:
         out = _cross_matvec_torch(kernel, x1, x2, v2)

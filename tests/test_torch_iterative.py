@@ -6,6 +6,7 @@ and both entry points on gpx's own noise, in float64 at n <= 300. Every
 gpx result comes from one jitted program, run once for the module."""
 
 from functools import partial
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -26,11 +27,11 @@ from gpx_torch.ops.cuda_matvec import _cross_matvec_torch, _gram_matvec_torch
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
 F32 = dict(device="cpu", dtype=torch.float32)
-N = 250
+N = 160
 KEY = jax.random.PRNGKey(5)        # the entry points' key
 PC_KEY = jax.random.PRNGKey(3)     # the preconditioner's sample
 SLQ_KEY = jax.random.PRNGKey(9)    # stand-alone SLQ
-OPTS = dict(n_probes=16, lanczos_iters=40, cg_tol=1e-8)
+OPTS = dict(n_probes=8, lanczos_iters=24, cg_tol=1e-8)
 
 
 def _t(a):
@@ -45,7 +46,7 @@ def _spd(rng, n, cond):
 def _data(rng):
     d = dict(
         x=np.sort(rng.uniform(-8, 8, size=(N, 1)), axis=0),
-        y=rng.normal(size=N), xs=np.linspace(-8, 8, 70)[:, None],
+        y=rng.normal(size=N), xs=np.linspace(-8, 8, 40)[:, None],
         v=rng.normal(size=(N, 3)),
         # a cross product at D = 2 with duplicates across the sets
         x1=rng.uniform(-5, 5, size=(96, 2)), v2=rng.normal(size=(200, 3)),
@@ -63,6 +64,13 @@ def _data(rng):
     d["x2"] = np.concatenate([d["x1"][:10], rng.uniform(-5, 5, size=(190, 2))])
     d["b_cg"][:, 1] *= 1e-4   # this column converges first
     return d
+
+
+def _per_key_rademacher(key, n, s):
+    """gpx's per-probe draws, ``rademacher(k, (n,))`` over ``split(key, s)``,
+    as columns; one vmapped draw compiles once where a loop compiles s."""
+    return jax.vmap(lambda k: jax.random.rademacher(k, (n,), dtype=jnp.float64),
+                    out_axes=1)(jax.random.split(key, s))
 
 
 def _oracles(kj, jp, d):
@@ -102,8 +110,7 @@ def _oracles(kj, jp, d):
     mv_l = lambda v: d["m_l"] @ v
     o["lanczos"] = jax.vmap(lambda z: jgi.lanczos(mv_l, z, 20), in_axes=1)(d["z_l"])
     o["slq"] = jgi.slq_logdet(mv_l, 60, SLQ_KEY, n_probes=8, m=20, dtype=jnp.float64)
-    o["slq_z"] = jnp.stack([jax.random.rademacher(k, (60,), dtype=jnp.float64)
-                            for k in jax.random.split(SLQ_KEY, 8)], axis=1)
+    o["slq_z"] = _per_key_rademacher(SLQ_KEY, 60, 8)
     o["pcg"] = jgi._pcg_tridiag(lambda v: d["m_p"] @ v, d["z_p"], 25,
                                 lambda v: v / jnp.diag(d["m_p"])[:, None])
     o["pcg_sticky"] = jgi._pcg_tridiag(
@@ -118,8 +125,7 @@ def _oracles(kj, jp, d):
     o["probe_noise"] = jax.random.rademacher(k_probe, (N, s), dtype=jnp.float64)
     o["slq_noise"] = {
         30: jax.random.normal(k_slq, (N, s), jnp.float64),
-        0: jnp.stack([jax.random.rademacher(k, (N,), dtype=jnp.float64)
-                      for k in jax.random.split(k_slq, s)], axis=1)}
+        0: _per_key_rademacher(k_slq, N, s)}
     # variance="none" returns the mean of the "exact" run bit for bit
     # (the same operations before the variance branch)
     o["fit"] = {rank: jgi.fit_iterative(jp, x, y, d["xs"], cg_tol=1e-9,
@@ -128,12 +134,21 @@ def _oracles(kj, jp, d):
     return o
 
 
+# The oracles run once, at small n: compile them for compile time, not
+# speed. On one core, LLVM at -O0 without fusion emitters cuts XLA's
+# compile of them from ~23 s to ~5 s and slows their run by ~1 s.
+_FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                 "xla_llvm_disable_expensive_passes": True,
+                 "xla_cpu_use_fusion_emitters": False}
+
+
 @pytest.fixture(scope="module")
 def ref():
     d = _data(np.random.default_rng(7))
     kj = gpx.se(3.0, 5.5) + gpx.white(0.5)
     jp = gpx.Parameters(mean=gpx.zero(), kernel=kj)
-    o = jax.jit(partial(_oracles, kj))(jp, {k: jnp.asarray(v) for k, v in d.items()})
+    oracles = jax.jit(partial(_oracles, kj), compiler_options=_FAST_COMPILE)
+    o = jax.block_until_ready(oracles(jp, {k: jnp.asarray(v) for k, v in d.items()}))
     # eagerly, as gpx's own test runs it: under jit, XLA on the CPU rounds
     # the centred differences of the duplicates away from exactly 0 and
     # White drops out (1.39 off numpy at one row)
@@ -183,7 +198,7 @@ def test_matvec_plain_matches_gpx_pallas(ref, form):
 
 
 def test_gradient_contraction_matches_jax_grad(ref):
-    """autograd through the checkpointed row blocks (64 rows: four blocks,
+    """autograd through the checkpointed row blocks (64 rows: three blocks,
     the last ragged) against jax.grad through _gram_matvec_xla."""
     d, o, kt, _ = ref
     x, a, w, u = _t(d["x"]), _t(d["a"]), _t(d["w"]), _t(d["u"])
@@ -352,3 +367,28 @@ def test_entry_points_public_and_scope(ref):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             gi.fit_iterative(tp, d["x"], d["y"], d["xs"])
+
+
+@pytest.mark.parametrize("name, want", [
+    ("se_white", True), ("matern_half_integer", NotImplementedError),
+    ("se_product", NotImplementedError), ("matern_general_nu", False),
+    ("linear", False)])
+def test_matvec_route_on_the_card(name, want):
+    """The dispatch's gate for a float32 CUDA tensor (a stand-in: the gate
+    reads only its device and type): the JAX package's Pallas gate, and a
+    Pallas-safe kernel that the CUDA term table lacks raises instead of
+    running the plain route at every solver step."""
+    kern = {"se_white": lambda: gt.se(1.0, 2.0, **F32) + gt.white(0.5, **F32),
+            "matern_half_integer": lambda: gt.matern(1.0, 1.5, 2.0, **F32),
+            "se_product": lambda: gt.se(1.0, 2.0, **F32) * gt.se(1.0, 3.0, **F32),
+            "matern_general_nu": lambda: gt.matern(1.0, 1.3, 2.0, **F32),
+            "linear": lambda: gt.linear(1.0, **F32)}[name]()
+    on_card = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
+    assert not tmv._uses_cuda_kernel(kern, torch.zeros((2, 1)))
+    assert not tmv._uses_cuda_kernel(
+        kern, SimpleNamespace(device=torch.device("cuda"), dtype=torch.float64))
+    if want is NotImplementedError:
+        with pytest.raises(NotImplementedError, match=type(kern).__name__):
+            tmv._uses_cuda_kernel(kern, on_card)
+    else:
+        assert tmv._uses_cuda_kernel(kern, on_card) is want

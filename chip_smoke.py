@@ -9,8 +9,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. the card's name and power limit (nvidia-smi); TF32 off; build the CUDA
    sources under gpx_torch/csrc (nvcc, sm_90a), printing the build time;
 2. each kernel against its plain version at the shapes the main paths give
-   it, with the tolerance and its reason; kernel, plain and library times;
-   the spine factorization and its solves;
+   it, with the tolerance and its reason (trmm and syrk_lower in f32 ulps
+   of each entry's sum of |terms| against float64, on ragged shapes and
+   unaligned views too; syrk_lower's writes on i >= j only, aliased and
+   repeated calls bitwise); kernel, plain and library times; the spine
+   factorization and its solves; chol_inv's products by level; chol_inv
+   at base 64 and 128 on a padded Gram;
 3. the end-to-end bench case (numpy seed 0, x ~ U(-10, 10) of shape
    (16384, 1), y ~ N(0, 1), SE(3.0, 5.5) + White(0.5), float32) through
    ``gp.logml_value_and_grad``, held against the non-fused route run in
@@ -43,17 +47,32 @@ import time
 import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): FP32 outside the
-# tensor cores, and HBM3 bandwidth; exponentials on the special-function
-# units, 16 per clock per SM x 132 SMs x 1.98 GHz (boost clock)
+# tensor cores, dense TF32 on them, and HBM3 bandwidth; exponentials on the
+# special-function units, 16 per clock per SM x 132 SMs x 1.98 GHz (boost
+# clock)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES = 3.35e12
 PEAK_SFU = 16 * 132 * 1.98e9
+EPS32 = 1.1920928955078125e-07
 
 N_BENCH = 16384
+# trmm / syrk_lower outputs against float64, in f32 ulps of each entry's
+# sum of |terms|. The tensor core's f32 accumulation truncates: each of the
+# 24 MMAs of a 64-deep slab (3 per 8 k) loses at most one ulp of the
+# slab's running sum, which is at most the slab's sum of |terms|, and the
+# slabs fold exactly. 3xTF32's dropped terms (2^-22 of each product, signs
+# at random) and the last rounding add well under one ulp.
+PRODUCT_ULPS = 24.0
 
 
-def bound_ms(*, flops: float = 0.0, nbytes: float = 0.0, exps: float = 0.0):
-    t_ops = max(flops / PEAK_FP32_FLOPS, exps / PEAK_SFU)
+def bound_ms(*, flops: float = 0.0, nbytes: float = 0.0, exps: float = 0.0,
+             tf32_flops: float = 0.0):
+    """The least time for the work, in ms, and what bounds it: ``flops``
+    on the CUDA cores in FP32, ``tf32_flops`` on the tensor cores,
+    ``exps`` on the special-function units, ``nbytes`` of device memory."""
+    t_ops = max(flops / PEAK_FP32_FLOPS, tf32_flops / PEAK_TF32_FLOPS,
+                exps / PEAK_SFU)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -104,6 +123,77 @@ def _record(name, source, replaces, err, ms, plain_ms, bound, lib_ms):
 
 def rel_max(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
+
+
+def _hold_ulps(torch, label, got, want, scale, ulps) -> float:
+    """A float32 output against its plain version in float64 on the same
+    inputs: every entry within ``ulps`` f32 ulps of its sum of |terms|
+    (``scale``; entries where it is 0 must match exactly). Returns the
+    largest absolute error."""
+    err = (got.double() - want).abs()
+    worst = float((err / scale.clamp_min(1e-300)).max()) / EPS32
+    print(f"{label}: max abs err {float(err.max()):.3e}, worst {worst:.3f} "
+          f"f32 ulps of its sum of |terms| (limit {ulps:g}), output scale "
+          f"{float(want.abs().max()):.3e}", flush=True)
+    check(bool((err <= ulps * EPS32 * scale).all()), f"{label} disagrees")
+    return float(err.max())
+
+
+def _odd_view(torch, rows, cols, ld, off, gen):
+    """A (rows, cols) float32 view with leading dimension ``ld`` at element
+    ``off`` of its storage (4-byte aligned only for odd ``off``), filled
+    with N(0, 1)."""
+    buf = torch.randn(off + rows * ld, generator=gen, device="cuda")
+    return buf[off:].view(rows, ld)[:, :cols]
+
+
+def _hold_trmm(torch, b, l, mode, neg=False, out=None) -> float:
+    """trmm against its plain version in float64 (_hold_ulps)."""
+    from gpx_torch.ops import cuda_trmm
+
+    got = cuda_trmm.trmm(b, l, mode=mode, neg=neg, out=out)
+    check(out is None or got.data_ptr() == out.data_ptr(), "trmm: out ignored")
+    b64, l64 = b.double(), l.double()
+    want = cuda_trmm.trmm_reference(b64, l64, mode=mode, neg=neg)
+    scale = cuda_trmm.trmm_reference(b64.abs(), l64.abs(), mode=mode)
+    return _hold_ulps(torch, f"trmm {mode} b {tuple(b.shape)} ld {b.stride(0)} "
+                      f"neg={neg}", got, want, scale, PRODUCT_ULPS)
+
+
+def _hold_syrk(torch, a, b, out=None) -> float:
+    """syrk_lower's lower triangle against its plain version in float64
+    (_hold_ulps); the scale is |A0| + |B| |B|^T."""
+    from gpx_torch.ops import cuda_trmm
+
+    got = cuda_trmm.syrk_lower(a, b, out=out)
+    a64, b64 = a.double(), b.double()
+    want = cuda_trmm.syrk_lower_reference(a64, b64)
+    scale = torch.tril(a64.abs() + b64.abs() @ b64.abs().T)
+    return _hold_ulps(torch, f"syrk_lower b {tuple(b.shape)} ld {b.stride(0)}",
+                      torch.tril(got), want, scale, PRODUCT_ULPS)
+
+
+def _syrk_writes(torch, a, b) -> None:
+    """syrk_lower writes i >= j only: an ``out`` of NaN keeps NaN above the
+    diagonal; ``out=a`` (aliased) gives the unaliased result bitwise and
+    leaves a's upper triangle as it was; a repeated call is bitwise equal."""
+    from gpx_torch.ops import cuda_trmm
+
+    n = a.shape[0]
+    want = cuda_trmm.syrk_lower(a, b)
+    check(torch.equal(want, cuda_trmm.syrk_lower(a, b)),
+          "syrk_lower: a repeated call differs")
+    upper = torch.ones((n, n), dtype=torch.bool, device="cuda").triu_(1)
+    got = torch.full((n, n), float("nan"), device="cuda")
+    cuda_trmm.syrk_lower(a, b, out=got)
+    check(bool(torch.isnan(got[upper]).all()), "syrk_lower wrote above the diagonal")
+    check(torch.equal(got[~upper], want[~upper]), "syrk_lower: out= differs")
+    got = a.clone()
+    cuda_trmm.syrk_lower(got, b, out=got)
+    check(torch.equal(got[~upper], want[~upper]) and
+          torch.equal(got[upper], a[upper]), "syrk_lower: out=a differs")
+    print(f"syrk_lower n={n}: NaN above the diagonal kept, out=a bitwise the "
+          f"unaliased result, repeated calls bitwise", flush=True)
 
 
 def phase_setup():
@@ -163,10 +253,10 @@ def phase_kernels(torch, gt):
     print(f"gram cross (1000, 2000) d=2: max abs err {err:.3e}", flush=True)
     check(err <= 1e-5 * float(want.abs().max()), "cross gram disagrees")
 
-    # -- 2./3. trmm (three modes) and syrk_lower at 8192^2, uneven panels ---
-    # tolerance 1e-4 of max|C|: two f32 sums of up to 8192 products in
-    # different orders (random-walk error ~sqrt(k) eps ~ 5e-6 of the scale,
-    # worst case k eps ~ 5e-4)
+    # -- 2./3. trmm (three modes, neg) and syrk_lower at 8192^2 and 5120-row
+    # panels, ragged shapes on both tile sizes, views with an odd leading
+    # dimension at an unaligned base; each output within PRODUCT_ULPS f32
+    # ulps of its sum of |terms| against float64 (_hold_trmm, _hold_syrk)
     n = 8192
     l = torch.randn((n, n), generator=gen, device=dev).tril_() / math.sqrt(n)
     l.diagonal().add_(2.0)
@@ -176,43 +266,53 @@ def phase_kernels(torch, gt):
         for mode, neg in (("right_lower", True), ("left_lower", False),
                           ("right_lower_t", False)):
             bb = b[:, :m_rows] if mode == "left_lower" else b[:m_rows]
-            got = cuda_trmm.trmm(bb, l, mode=mode, neg=neg)
-            want = cuda_trmm.trmm_reference(bb, l, mode=mode, neg=neg)
-            err = float((got - want).abs().max())
-            print(f"trmm {mode} b {tuple(bb.shape)} neg={neg}: max abs err "
-                  f"{err:.3e}", flush=True)
-            check(err <= 1e-4 * float(want.abs().max()), f"trmm {mode} disagrees")
-            trmm_err = max(trmm_err, err)
-    # a ragged shape (no dimension a multiple of the 64 tile) for the masks
-    lr, br = l[:200, :200].contiguous(), b[:130, :200].contiguous()
-    for mode in ("right_lower", "right_lower_t"):
-        err = rel_max(cuda_trmm.trmm(br, lr, mode=mode),
-                      cuda_trmm.trmm_reference(br, lr, mode=mode))
-        check(err <= 1e-5, f"ragged trmm {mode} disagrees ({err:.2e})")
+            trmm_err = max(trmm_err, _hold_trmm(torch, bb, l, mode, neg))
+    # ragged (no dimension a multiple of 128) and odd-ld views at unaligned
+    # bases (the 4-byte copy path), each on 64-wide tiles (kn = 997) and on
+    # 128-wide ones (kn = 4999: 1,600 tiles, past the 12-wave switch)
+    for kn, mr in ((997, 500), (4999, 4997)):
+        lr = l[:kn, :kn].contiguous()
+        lv = _odd_view(torch, kn, kn, kn + 4, 1, gen)
+        lv.copy_(lr)
+        for mode in cuda_trmm.MODES:
+            shape = (kn, mr) if mode == "left_lower" else (mr, kn)
+            _hold_trmm(torch, b[:shape[0], :shape[1]].contiguous(), lr, mode)
+            bv = _odd_view(torch, *shape, shape[1] + 3, 3, gen)
+            _hold_trmm(torch, bv, lv, mode,
+                       out=_odd_view(torch, *shape, shape[1] + 5, 1, gen))
+    got = cuda_trmm.trmm(b, l, mode="right_lower")
+    check(torch.equal(got, cuda_trmm.trmm(b, l, mode="right_lower")),
+          "trmm: a repeated call differs")
     ms = time_ms(torch, lambda: cuda_trmm.trmm(b, l, mode="right_lower"))
     plain = time_ms(torch, lambda: cuda_trmm.trmm_reference(b, l, mode="right_lower"))
     lib = time_ms(torch, lambda: torch.matmul(b, l))
+    print(f"trmm right_lower 8192^2: kernel {ms:.3f} ms, torch.matmul {lib:.3f} "
+          f"ms; bounds 3xTF32 {bound_ms(tf32_flops=3.0 * n ** 3)[0]:.3f} ms, "
+          f"FP32 {bound_ms(flops=float(n) ** 3)[0]:.3f} ms", flush=True)
     record("trmm", "gpx_torch/csrc/trmm.cu", "gpx/ops/pallas_trmm.py:127",
-           trmm_err, ms, plain, bound_ms(flops=float(n) ** 3,
+           trmm_err, ms, plain, bound_ms(tf32_flops=3.0 * n ** 3,
                                          nbytes=4.0 * (n * n * 2.5)), lib)
 
     a = b @ b.T / n
     a.diagonal().add_(1.0)
-    syrk_err = 0.0
-    for k in (n, 5120):
-        got = cuda_trmm.syrk_lower(a, b[:, :k])
-        want = cuda_trmm.syrk_lower_reference(a, b[:, :k])
-        err = float((got.tril() - want).abs().max())
-        print(f"syrk_lower b (8192, {k}): max abs err {err:.3e}", flush=True)
-        check(err <= 1e-4 * float(want.abs().max()), "syrk_lower disagrees")
-        syrk_err = max(syrk_err, err)
+    syrk_err = max(_hold_syrk(torch, a, b[:, :k]) for k in (n, 5120))
+    # ragged and unaligned as for trmm: 64-wide tiles at n = 333, 128-wide
+    # at n = 7100 (1,596 lower-triangle tiles)
+    for nr, kr in ((333, 129), (7100, 1001)):
+        _hold_syrk(torch, a[:nr, :nr].contiguous(), b[:nr, :kr].contiguous())
+        _hold_syrk(torch, _odd_view(torch, nr, nr, nr + 4, 3, gen),
+                   _odd_view(torch, nr, kr, kr + 2, 1, gen),
+                   out=_odd_view(torch, nr, nr, nr + 2, 1, gen))
+    _syrk_writes(torch, a, b)
     ms = time_ms(torch, lambda: cuda_trmm.syrk_lower(a, b))
     plain = time_ms(torch, lambda: cuda_trmm.syrk_lower_reference(a, b))
     lib = time_ms(torch, lambda: torch.addmm(a, b, b.T, alpha=-1.0))
+    print(f"syrk_lower 8192^2, k = 8192: kernel {ms:.3f} ms, torch.addmm "
+          f"{lib:.3f} ms", flush=True)
     record("syrk_lower", "gpx_torch/csrc/trmm.cu", "gpx/ops/pallas_trmm.py:239",
-           syrk_err, ms, plain, bound_ms(flops=float(n) ** 3,
+           syrk_err, ms, plain, bound_ms(tf32_flops=3.0 * n ** 3,
                                          nbytes=4.0 * (n * n + n * n)), lib)
-    del l, b, a, got, want
+    del l, b, a, got
 
     # -- 4. the leaf at its size, at an offset, and chol_inv at N = 16384 ----
     # leaf tolerance 1e-4 of max|.|: a 128-step f32 factorization against
@@ -258,25 +358,15 @@ def phase_kernels(torch, gt):
            "gpx/ops/pallas_chol.py:184", err, ms, plain,
            bound_ms(flops=t ** 3 / 3.0, nbytes=4.0 * 2.5 * t * t), lib)
 
-    # chol_inv: ||L L^T - K|| / ||K|| and ||M L - I|| / ||I|| (Frobenius);
-    # 1e-5 is a few f32 ulps for the backward error of the factor, 1e-3
-    # allows eps * cond(L) (cond(K) ~ 5e4) for the inverse's residual
+    # chol_inv at N = 16384: its residuals (_chol_residuals), launches,
+    # time, the spine factorization, the products by level, other bases
     factor_kernels = (cuda_chol.chol_inv_tile, cuda_chol.chol_inv_tile_off,
                       cuda_trmm.trmm, cuda_trmm.syrk_lower)
     for c in factor_kernels:
         c.launches = 0
     lf, mf = cuda_chol.chol_inv(kmat)
     launches = {c.__name__: c.launches for c in factor_kernels}
-    # (the residuals are formed in float64: an f32 product would add its
-    # own rounding of the same size)
-    l64, k64m = lf.double(), kmat.double()
-    fact = float(torch.linalg.matrix_norm(l64 @ l64.T - k64m)
-                 / torch.linalg.matrix_norm(k64m))
-    del k64m
-    res = mf.double() @ l64
-    res.diagonal().sub_(1.0)
-    inv = float(torch.linalg.matrix_norm(res) / math.sqrt(N_BENCH))
-    del l64, res
+    fact, inv = _chol_residuals(torch, kmat, lf, mf)
     print(f"chol_inv n={N_BENCH}: ||LL^T-K||/||K|| {fact:.3e}  "
           f"||ML-I||/||I|| {inv:.3e}  launches {launches}", flush=True)
     check(fact <= 1e-5 and inv <= 1e-3, "chol_inv residuals too large")
@@ -289,7 +379,9 @@ def phase_kernels(torch, gt):
     spine = _check_spine(torch, kmat, lf, mf, inv, gen)
     spine["chol_inv_ms"] = chol_ms
     spine["chol_inv_trmm_launches"] = launches["trmm"]
+    levels = _chol_levels(torch, kmat, lf, mf, chol_ms)
     del lf
+    _check_bases(torch, kern, x[:9000])
 
     # -- 5. logml_kernel_grads at N = 4096 and at the main path's N = 16384,
     # each against the plain version in float64 on the same f32 inputs
@@ -342,8 +434,73 @@ def phase_kernels(torch, gt):
     torch.cuda.empty_cache()
     return records, {"chol_inv_ms": chol_ms, "cholesky_lib_ms": lib_chol,
                      "chol_inv_launches": launches, "leaf_share": leaf_share,
-                     "spine": spine,
+                     "chol_inv_levels": levels, "spine": spine,
                      "probe_ms": {s: v[0] for s, v in probe_ms.items()}}
+
+
+def _chol_residuals(torch, k, l, m):
+    """||L L^T - K|| / ||K|| and ||M L - I|| / ||I|| (Frobenius), formed in
+    float64: an f32 product would add its own rounding of the same size.
+    chol_inv's limits are 1e-5 (a few f32 ulps for the factor's backward
+    error) and 1e-3 (eps * cond(L) for the inverse, cond(K) ~ 5e4)."""
+    l64, k64 = l.double(), k.double()
+    fact = float(torch.linalg.matrix_norm(l64 @ l64.T - k64)
+                 / torch.linalg.matrix_norm(k64))
+    del k64
+    res = m.double() @ l64
+    res.diagonal().sub_(1.0)
+    return fact, float(torch.linalg.matrix_norm(res) / math.sqrt(k.shape[0]))
+
+
+def _chol_levels(torch, kmat, lf, mf, chol_ms):
+    """Stand-alone times of chol_inv's products at N = 16384, level by
+    level: at split h the recursion makes N / (2 h) calls each of trmm
+    right_lower_t, syrk_lower, trmm right_lower (neg) and trmm left_lower
+    on (h, h) blocks (here the leading blocks of K and its factor). Returns
+    {h: ms of the level}; the rest of chol_inv is the leaves, the L21
+    copies and the gaps between launches."""
+    from gpx_torch.ops import cuda_chol, cuda_trmm
+
+    n, levels = kmat.shape[0], {}
+    h = n // 2
+    while h >= cuda_chol.LEAF:
+        s1, s2 = slice(0, h), slice(h, 2 * h)
+        ws = torch.empty((h, h), device="cuda")
+
+        def products():
+            cuda_trmm.trmm(kmat[s2, s1], mf[s1, s1], mode="right_lower_t", out=ws)
+            cuda_trmm.syrk_lower(kmat[s2, s2], lf[s2, s1], out=ws)
+            t1 = cuda_trmm.trmm(lf[s2, s1], mf[s1, s1], mode="right_lower", neg=True)
+            cuda_trmm.trmm(t1, mf[s2, s2], mode="left_lower", out=ws)
+
+        levels[h] = n // (2 * h) * time_ms(torch, products, reps=3 if h > 1024 else 10)
+        h //= 2
+    total = sum(levels.values())
+    print(f"chol_inv n={n} products by split h (ms, stand-alone x calls): "
+          f"{ {h: round(t, 3) for h, t in levels.items()} }; sum {total:.2f} of "
+          f"{chol_ms:.2f} ms, the rest (leaves, copies, gaps) "
+          f"{chol_ms - total:.2f} ms", flush=True)
+    return levels
+
+
+def _check_bases(torch, kern, x):
+    """chol_inv at base = 64 and 128 on the n = 9000 Gram padded to 9088 as
+    the fused route pads it (gp._pad_spd): exact zeros above the diagonal
+    of L and M, and the residuals within chol_inv's limits."""
+    from gpx_torch.models import gp
+    from gpx_torch.ops import cuda_chol, cuda_gram
+
+    k = gp._pad_spd(cuda_gram.gram_cuda(kern, x, nugget=1e-3), 9088 - x.shape[0])
+    for base in (64, 128):
+        l, m = cuda_chol.chol_inv(k, base=base)
+        fact, inv = _chol_residuals(torch, k, l, m)
+        zero = not l.triu(1).any() and not m.triu(1).any()
+        print(f"chol_inv n=9000 padded to {k.shape[0]}, base={base}: exact "
+              f"zeros above the diagonal {zero}; ||LL^T-K||/||K|| {fact:.3e}  "
+              f"||ML-I||/||I|| {inv:.3e}", flush=True)
+        check(zero, f"chol_inv base={base}: nonzero above the diagonal")
+        check(fact <= 1e-5 and inv <= 1e-3,
+              f"chol_inv base={base}: residuals too large")
 
 
 def _rademacher(torch, shape, gen):
@@ -563,7 +720,7 @@ def phase_bench(torch, gt, records):
     # fused against non-fused route by n: these set gp.FUSED_MIN_N
     crossover = {}
     keep = gp.FUSED_MIN_N
-    for n in (1024, 2048, 4096, 8192, N_BENCH):
+    for n in (1024, 2048, 4096, 5120, 6144, 8192, N_BENCH):
         xs, ys = x[:n].contiguous(), y[:n].contiguous()
         row = {}
         for route, threshold in (("fused", 0), ("nonfused", n + 1)):
@@ -734,7 +891,6 @@ N_RAGGED, N_DUP, N_CROSS = 4000, 2001, (1000, 3001)
 CHECK_ROWS = 4096     # rows of the plain version held at N_SCALE
 # examples/large_n.py's run_iterative settings
 ITER = dict(n_probes=8, lanczos_iters=32, cg_tol=1e-4, precond_rank=64)
-EPS32 = 1.1920928955078125e-07
 
 
 def _iter_case(n):
@@ -776,26 +932,16 @@ def _count(torch, fn):
     return out, counts
 
 
-def _hold_matvec(torch, label, got, want, scale) -> float:
-    """A matvec kernel's float32 output against its plain version in
-    float64 on the same inputs: every output within 4 f32 ulps of its sum
-    of |terms| sum_j |K_ij| |V_jr| (``scale``). Each entry k(r2) carries a
-    few ulps (the f32 difference, expf, r2 / sigma^2 scaling the
-    argument's rounding) with random signs; the tile sums are float over
-    32 terms and double across tiles. Returns the largest absolute error."""
-    err = (got.double() - want).abs()
-    worst = float((err / scale).max()) / EPS32
-    print(f"{label}: max abs err {float(err.max()):.3e}, worst {worst:.3f} "
-          f"f32 ulps of its sum of |terms| (limit 4), output scale "
-          f"{float(want.abs().max()):.3e}", flush=True)
-    check(bool((err <= 4.0 * EPS32 * scale).all()), f"{label} disagrees")
-    return float(err.max())
-
-
 def _matvec_checks(torch, gt, records):
     """Both kernels against their plain versions at the path's shapes, the
     ragged and D = 12 shapes, and a 4096-row slice at N = 131,072; their
-    records (kernel, plain, library ms and bounds at N = 32,768)."""
+    records (kernel, plain, library ms and bounds at N = 32,768).
+
+    Every output within 4 f32 ulps of its sum of |terms| sum_j |K_ij|
+    |V_jr| (_hold_ulps): each entry k(r2) carries a few ulps (the f32
+    difference, expf, r2 / sigma^2 scaling the argument's rounding) with
+    random signs; the tile sums are float over 32 terms and double across
+    tiles."""
     from gpx_torch.ops import cuda_gram
     from gpx_torch.ops import cuda_matvec as cm
 
@@ -817,7 +963,7 @@ def _matvec_checks(torch, gt, records):
                      + nug * v64[:rows].abs())
             got = got[:rows]
         errs["gram_matvec"] = max(errs["gram_matvec"],
-                                  _hold_matvec(torch, label, got, want, scale))
+                                  _hold_ulps(torch, label, got, want, scale, 4.0))
 
     def cross_case(label, x1, x2, v):
         c = x2.mean(dim=0, keepdim=True)
@@ -827,7 +973,7 @@ def _matvec_checks(torch, gt, records):
         scale = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(),
                                        v.double().abs())
         errs["cross_matvec"] = max(errs["cross_matvec"],
-                                   _hold_matvec(torch, label, got, want, scale))
+                                   _hold_ulps(torch, label, got, want, scale, 4.0))
 
     x = torch.as_tensor(_iter_case(N_IT)[0], device="cuda")
     for r in (1, 8, 9):

@@ -41,9 +41,10 @@ LOGML_NUGGET = 1e-3  # the reference's Tikhonov nugget (GaussianProcess.scala:11
 PREDICT_NUGGET = 1e-6  # the reference's prediction nugget (Predict.scala:67)
 
 # Smallest n that takes the fused route: chip_smoke.py times both routes
-# at n = 1024 ... 16384 on the card. On an H100 (700 W) the fused route
-# lost at 2048 and 4096 and won at 8192 and 16384 (PERF.md).
-FUSED_MIN_N = 8192
+# at n = 1024 ... 16384 on the card. On an H100 (700 W), with the factor's
+# products on the tensor cores, the fused route lost at 2048 and won from
+# 4096 on (PERF.md, PR 4).
+FUSED_MIN_N = 4096
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 

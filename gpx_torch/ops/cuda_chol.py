@@ -8,7 +8,7 @@ recursion ``_rec_value`` / ``_split``::
     chol_inv(A):                       # A = [[A11, .], [A21, A22]]
       L11, M11 = chol_inv(A11)
       L21 = A21 @ M11^T                #   trmm right_lower_t
-      S   = A22 - L21 @ L21^T          #   syrk_lower (lower tiles only)
+      S   = A22 - L21 @ L21^T          #   syrk_lower (lower triangle only)
       L22, M22 = chol_inv(S)
       M21 = -M22 @ (L21 @ M11)         #   trmm right_lower (neg) + left_lower
 
@@ -107,8 +107,9 @@ def chol_inv(a, *, base: int = LEAF, spine: bool = False):
 
     ``L`` and ``M = L^-1`` start as zeros and every block is written into
     them in place, through views (:func:`_rec`). ``base`` (a power of 2,
-    64 to :data:`LEAF`) is the largest leaf: the recursion's 64-wide
-    product tiles then never write across a leaf's diagonal block.
+    64 to :data:`LEAF`) is the largest leaf. The product kernels' tiles
+    do not tie it: ``syrk_lower`` writes element by element on and below
+    the diagonal, so nothing lands above a leaf's diagonal block.
 
     ``spine=True`` skips the M21 assembly at the top level and, recursively,
     in every Schur child: the blocks no later step of the factorization

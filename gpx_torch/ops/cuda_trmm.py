@@ -92,9 +92,9 @@ def syrk_lower(a, b, *, out=None):
     """``a - b @ b.T`` on the lower triangle, ``b`` of shape ``(n, k)``.
 
     Only the lower triangle of the result is defined: the kernel writes
-    the 64 x 64 tiles on and below the diagonal, and leaves the rest of
-    ``out`` as it was (a new ``out`` starts at zero). ``out`` may be ``a``
-    itself or the same block of it."""
+    each element with ``i >= j`` and leaves every other element of ``out``
+    as it was (a new ``out`` starts at zero), whatever its tile size.
+    ``out`` may be ``a`` itself or the same block of it."""
     n = b.shape[0]
     if b.ndim != 2 or a.ndim != 2 or tuple(a.shape) != (n, n):
         raise ValueError(f"syrk_lower: a {tuple(a.shape)}, b {tuple(b.shape)}")

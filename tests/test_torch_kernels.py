@@ -18,6 +18,7 @@ from gpx.ops.pallas_chol import chol_inv_tile_off as jax_chol_inv_tile_off
 from gpx.ops.pallas_gram import pallas_gram
 from gpx.ops.pallas_trmm import syrk_lower as jax_syrk_lower
 from gpx.ops.pallas_trmm import trmm as jax_trmm
+from gpx_torch.models.gp import _pad_spd
 from gpx_torch.ops import cuda_chol, cuda_gram, cuda_trmm, terms
 from gpx_torch.params import leaves, unflatten
 
@@ -77,6 +78,31 @@ def test_syrk_lower_reference_matches_pallas(rng):
     assert _rel(torch.tril(got), want) < 1e-4
     # the strict upper triangle of ``out`` is left as it was
     assert bool(torch.all(torch.triu(got, 1) == torch.triu(torch.full((n, n), 7.0), 1)))
+
+
+def test_syrk_lower_out_may_alias_a(rng):
+    # ``out=a`` (aliased, as chol_inv's Schur step calls it) gives the
+    # unaliased result on i >= j and leaves a's strict upper triangle
+    n, k = 96, 40
+    a = torch.as_tensor(_spd(rng, n))
+    b = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32))
+    want = cuda_trmm.syrk_lower(a, b)
+    upper = torch.ones(n, n, dtype=torch.bool).triu(1)
+    aliased = a.clone()
+    cuda_trmm.syrk_lower(aliased, b, out=aliased)
+    assert torch.equal(aliased[~upper], want[~upper])
+    assert torch.equal(aliased[upper], a[upper])
+
+
+@pytest.mark.parametrize("base", [64, 128])
+def test_chol_inv_padded_bases(rng, base):
+    # n = 200 padded to 256 as the fused route pads it: either base gives
+    # exact zeros above both diagonals and the float64 factor
+    k = _pad_spd(torch.as_tensor(_spd(rng, 200), dtype=torch.float64), 56)
+    l, m = cuda_chol.chol_inv(k, base=base)
+    assert not torch.triu(l, 1).any() and not torch.triu(m, 1).any()
+    assert _rel(l, torch.linalg.cholesky(k)) < 1e-12
+    assert _rel(m @ l, torch.eye(256, dtype=torch.float64)) < 1e-12
 
 
 def test_chol_inv_tile_reference_matches_pallas(rng):

@@ -12,13 +12,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    it, with the tolerance and its reason (trmm and syrk_lower in f32 ulps
    of each entry's sum of |terms| against float64, on ragged shapes and
    unaligned views too; syrk_lower's writes on i >= j only, aliased and
-   repeated calls bitwise); kernel, plain and library times; the spine
-   factorization and its solves; chol_inv's products by level; chol_inv
-   at base 64 and 128 on a padded Gram;
+   repeated calls bitwise; the leaf at t = 128 and 100; the gradient at
+   n = 4096, 4160 and 16384, repeated calls bitwise); kernel, plain and
+   library times; the spine factorization and its solves; chol_inv's
+   products by level; chol_inv at base 64 and 128 on a padded Gram;
 3. the end-to-end bench case (numpy seed 0, x ~ U(-10, 10) of shape
    (16384, 1), y ~ N(0, 1), SE(3.0, 5.5) + White(0.5), float32) through
    ``gp.logml_value_and_grad``, held against the non-fused route run in
-   float64 on the card; every kernel's launch count in that call; ms/eval;
+   float64 on the card, and each term of its value against float64; every
+   kernel's launch count in that call; ms/eval;
    fused against non-fused times at n = 1024 ... 16384; then the same case
    through ``method="hybrid"`` (three probe seeds, and n = 9000), its
    launch counts, ms/eval and the times of its stages;
@@ -30,6 +32,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    posterior, one eval at N = 131,072 with its memory, launch counts, stage
    times and ms/eval;
 5. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+
+    python3 chip_smoke.py --no-iterative
+
+runs phases 1-3 only and ends after their summary, with no ``kernels``
+line and no ``ok`` line: for comparing two trees on one card, where
+phase 4 runs none of the factor's or the gradient's kernels.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -91,6 +99,23 @@ def time_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, launches: int = 20, reps: int = 10) -> float:
+    """Device time of one ``fn()``: ``launches`` calls captured in a CUDA
+    graph, replayed ``reps`` times, by CUDA events. For a kernel that runs
+    for less time than its Python launch path takes, where ``time_ms``
+    would measure the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return time_ms(torch, graph.replay, reps=reps) / launches
 
 
 def _median_ms(torch, fn, reps: int = 5):
@@ -328,12 +353,42 @@ def phase_kernels(torch, gt):
           f"{rel_max(gl, wl):.2e}, M rel {rel_max(gm, wm):.2e})", flush=True)
     check(rel_max(gl, wl) <= 1e-4 and rel_max(gm, wm) <= 1e-4,
           "chol_inv_tile disagrees")
-    ms = time_ms(torch, lambda: cuda_chol.chol_inv_tile(leaf), reps=20)
+    # printed only: the kernel and the plain f32 version against float64 on
+    # the same f32 tile (the check above compares two f32 factors)
+    dl, dm = cuda_chol.chol_inv_tile_reference(leaf.double())
+    print(f"chol_inv_tile t={t} against float64: kernel L rel "
+          f"{rel_max(gl, dl):.2e}, M rel {rel_max(gm, dm):.2e}; plain f32 L "
+          f"rel {rel_max(wl, dl):.2e}, M rel {rel_max(wm, dm):.2e}", flush=True)
+    # a leaf whose size is not a multiple of the 32-wide panel (the kernel
+    # pads it with the identity): the same limits, exact zeros above both
+    # diagonals
+    tr = 100
+    leaf_r = kmat[:tr, :tr].contiguous()
+    gl, gm = cuda_chol.chol_inv_tile(leaf_r)
+    wl, wm = cuda_chol.chol_inv_tile_reference(leaf_r)
+    zero = not gl.triu(1).any() and not gm.triu(1).any()
+    print(f"chol_inv_tile t={tr}: L rel {rel_max(gl, wl):.2e}, M rel "
+          f"{rel_max(gm, wm):.2e}; exact zeros above the diagonal {zero}",
+          flush=True)
+    check(rel_max(gl, wl) <= 1e-4 and rel_max(gm, wm) <= 1e-4 and zero,
+          f"chol_inv_tile t={tr} disagrees")
+    # the kernel by graph replay (its launch through Python takes longer than
+    # the kernel); the plain and library versions synchronise, by time_ms
+    gl, gm = torch.empty_like(leaf), torch.empty_like(leaf)
+    ms = graph_ms(torch, lambda: cuda_chol.chol_inv_tile(leaf, l_out=gl, m_out=gm))
+    launch_ms = time_ms(torch, lambda: cuda_chol.chol_inv_tile(leaf), reps=20)
     plain = time_ms(torch, lambda: cuda_chol.chol_inv_tile_reference(leaf), reps=20)
     lib = time_ms(torch, lambda: torch.linalg.cholesky(leaf), reps=20)
+    # the factor and its inverse, t^3 / 3 FLOPs each; a serial leaf has one
+    # SM, so its bound on that SM's share of the FP32 peak is printed too
+    leaf_bound = bound_ms(flops=2.0 * t ** 3 / 3.0, nbytes=4.0 * 2.5 * t * t)
+    print(f"chol_inv_tile t={t}: kernel {ms:.4f} ms (graph replay; "
+          f"{launch_ms:.4f} ms a call through Python); bound "
+          f"{leaf_bound[0]:.6f} ms ({leaf_bound[1]}), on one SM "
+          f"{1e3 * 2.0 * t ** 3 / 3.0 / (PEAK_FP32_FLOPS / 132):.4f} ms",
+          flush=True)
     record("chol_inv_tile", "gpx_torch/csrc/chol_inv_tile.cu",
-           "gpx/ops/pallas_chol.py:160", err, ms, plain,
-           bound_ms(flops=t ** 3 / 3.0, nbytes=4.0 * 2.5 * t * t), lib)
+           "gpx/ops/pallas_chol.py:160", err, ms, plain, leaf_bound, lib)
 
     # the leaf read in place inside the 16384^2 Gram: the same limits
     # against its plain version, and bitwise the leaf on a contiguous copy
@@ -351,12 +406,12 @@ def phase_kernels(torch, gt):
           "chol_inv_tile_off disagrees")
     check(torch.equal(gl, cl) and torch.equal(gm, cm),
           "chol_inv_tile_off differs from the leaf on a copy of its block")
-    ms = time_ms(torch, lambda: cuda_chol.chol_inv_tile_off(kmat, off, t), reps=20)
+    ms = graph_ms(torch, lambda: cuda_chol.chol_inv_tile_off(
+        kmat, off, t, l_out=gl, m_out=gm))
     plain = time_ms(torch, lambda: cuda_chol.chol_inv_tile_reference(blk), reps=20)
     lib = time_ms(torch, lambda: torch.linalg.cholesky(blk), reps=20)
     record("chol_inv_tile_off", "gpx_torch/csrc/chol_inv_tile.cu",
-           "gpx/ops/pallas_chol.py:184", err, ms, plain,
-           bound_ms(flops=t ** 3 / 3.0, nbytes=4.0 * 2.5 * t * t), lib)
+           "gpx/ops/pallas_chol.py:184", err, ms, plain, leaf_bound, lib)
 
     # chol_inv at N = 16384: its residuals (_chol_residuals), launches,
     # time, the spine factorization, the products by level, other bases
@@ -383,24 +438,40 @@ def phase_kernels(torch, gt):
     del lf
     _check_bases(torch, kern, x[:9000])
 
-    # -- 5. logml_kernel_grads at N = 4096 and at the main path's N = 16384,
-    # each against the plain version in float64 on the same f32 inputs
-    # (_hold); timed at N = 16384
+    # -- 5. logml_kernel_grads at N = 4096, at n = 4160 (= 64 mod 128: the
+    # kernel's last 128-wide tile row is half outside n) and at the main
+    # path's N = 16384, each against the plain version in float64 on the
+    # same f32 inputs (_hold); a repeated call bitwise; timed at N = 16384
     nchk = 4096
     xs = x[:nchk].contiguous()
     _, ms_inv = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, xs, nugget=1e-3))
     alpha = torch.randn(nchk, generator=gen, device=dev) * 0.1
     err = _hold_grads(torch, gt, kern, xs, alpha, ms_inv)
+    n_rag = 4160
+    x_rag = x[:n_rag].contiguous()
+    _, m_rag = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, x_rag, nugget=1e-3))
+    a_rag = torch.randn(n_rag, generator=gen, device=dev) * 0.1
+    err = max(err, _hold_grads(torch, gt, kern, x_rag, a_rag, m_rag))
+    del m_rag
     alpha16 = torch.randn(N_BENCH, generator=gen, device=dev) * 0.1
     m16 = mf
     err = max(err, _hold_grads(torch, gt, kern, x, alpha16, m16))
+    first = _outputs(gt, cuda_logml_grad.logml_kernel_grads(kern, x, alpha16, m16))
+    again = _outputs(gt, cuda_logml_grad.logml_kernel_grads(kern, x, alpha16, m16))
+    print(f"logml_kernel_grads n={N_BENCH}: a repeated call bitwise "
+          f"{first == again}", flush=True)
+    check(first == again, "logml_kernel_grads: a repeated call differs")
     ms = time_ms(torch, lambda: cuda_logml_grad.logml_kernel_grads(kern, x, alpha16, m16), reps=3)
     plain = time_ms(torch, lambda: cuda_logml_grad.logml_kernel_grads_reference(
         kern, x, alpha16, m16), reps=3)
+    # N^3 / 3 useful FLOPs: N^3 tensor-core FLOPs in 3xTF32
+    grad_bound = bound_ms(tf32_flops=float(N_BENCH) ** 3,
+                          nbytes=4.0 * N_BENCH * N_BENCH / 2)
+    print(f"logml_kernel_grads n={N_BENCH}: kernel {ms:.3f} ms; bounds 3xTF32 "
+          f"{grad_bound[0]:.3f} ms, FP32 "
+          f"{bound_ms(flops=N_BENCH ** 3 / 3.0)[0]:.3f} ms", flush=True)
     record("logml_kernel_grads", "gpx_torch/csrc/logml_grad.cu",
-           "gpx/ops/pallas_logml_grad.py:136", err, ms, plain,
-           bound_ms(flops=N_BENCH ** 3 / 3.0, nbytes=4.0 * N_BENCH * N_BENCH / 2),
-           None)
+           "gpx/ops/pallas_logml_grad.py:136", err, ms, plain, grad_bound, None)
 
     # -- 6. logml_probe_grads: against its plain version in float64 on the
     # same f32 inputs (_hold) at the main path's N = 16384 with s = 64 (the
@@ -697,6 +768,7 @@ def phase_bench(torch, gt, records):
 
     v_rel, rel, h_abs = _against_f64(torch, gt, gp, x, y, value, grads,
                                      "bench")
+    _value_terms(torch, gt, gp, params.kernel, x, y)
     # off the tile grid: n = 9000 pads to 9088 (uneven Schur splits)
     n_off = 9000
     check(gp._fused_gate(params.kernel, x[:n_off]), "n=9000 is not fused")
@@ -733,6 +805,35 @@ def phase_bench(torch, gt, records):
               f"{row['nonfused']:.3f} ms", flush=True)
     return {"ms_per_eval": eval_ms, "value_rel": v_rel, "grad_rel": rel,
             "h_abs": h_abs, "routes": crossover}
+
+
+def _value_terms(torch, gt, gp, kernel, x, y):
+    """Where the bench value's error sits: each term of the fused value
+    (the quadratic form r^T alpha, sum log diag(L^-1), and the logdet
+    correction's tr(W_hat K) + nugget tr(W_hat), as gp._fused_logml_core
+    forms them; no mean, no padding at N = 16384) against float64. Printed
+    only: the limits are _against_f64's, on the value itself."""
+    from gpx_torch.ops import cuda_chol, cuda_logml_grad
+
+    nug = gp.LOGML_NUGGET
+    k = gp.gram(kernel, x, nugget=nug)
+    _, m = cuda_chol.chol_inv(k)
+    alpha0 = m.T @ (m @ y)
+    alpha = alpha0 + m.T @ (m @ (y - k @ alpha0))
+    _, (tkw, trw) = cuda_logml_grad.logml_kernel_grads(kernel, x, alpha, m)
+    got = (float(y @ alpha), float(torch.log(torch.diagonal(m)).sum()),
+           float(tkw + nug * trw))
+    k64 = k.double()
+    l64 = torch.linalg.cholesky(k64)
+    y64 = y.double()
+    # the exact correction is tr(K^-1 K) = n
+    want = (float(y64 @ torch.cholesky_solve(y64[:, None], l64)[:, 0]),
+            -float(torch.log(torch.diagonal(l64)).sum()), float(x.shape[0]))
+    print("bench value terms, f32 - f64 (r^T alpha, sum log diag M, "
+          "tr(W_hat K) + nugget tr(W_hat)): "
+          f"{[f'{a - b:.3e}' for a, b in zip(got, want)]}; value error "
+          f"{-0.5 * (got[0] - want[0]) + (got[1] - want[1]) - 0.5 * (got[2] - want[2]):.3e}",
+          flush=True)
 
 
 def _counters():
@@ -1534,6 +1635,10 @@ def main() -> int:
     summary["hybrid"] = phase_hybrid(torch, gt, records)
     print(f"ms/eval at N = {N_BENCH}: exact {summary['ms_per_eval']:.2f}  "
           f"hybrid {summary['hybrid']['ms_per_eval']:.2f}", flush=True)
+    if "--no-iterative" in sys.argv[1:]:
+        print("summary: " + json.dumps(summary), flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s (phases 1-3)", flush=True)
+        return 0
     summary["iterative"] = phase_iterative(torch, gt, records)
     print("summary: " + json.dumps(summary), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,49 +1,151 @@
-// Fused logML gradient for Hopper (sm_90a).
+// Fused logML gradient for Hopper (sm_90a), 3xTF32 on the tensor cores.
 //
 // Replaces the TPU kernel gpx/ops/pallas_logml_grad.py::logml_kernel_grads
 // (_body) with with_correction=True, non-ARD. For every lower-triangle
-// 64 x 64 tile (i >= j) of W = 0.5 (alpha alpha^T - K^-1):
+// 128 x 128 tile (i >= j) of W = 0.5 (alpha alpha^T - K^-1):
 //   K^-1 tile = sum_{k >= i} Li[k, i-tile]^T Li[k, j-tile]   (N^3/6 MACs)
-// through the shared tile core (tile_core.cuh: A read transposed, the k
-// loop inside the block, slices summed in double), then the shared epilogue
-// (grad_epilogue.cuh): W, its contraction with dk/dtheta of every
-// term-table hyperparameter (terms.cuh: explicit device functions, no
-// autodiff), and the logdet-correction traces tr(W_hat K) and tr(W_hat).
+// then, for each of its 64 x 64 quadrants on or below the diagonal and
+// inside n, the shared epilogue (grad_epilogue.cuh): W, its contraction
+// with dk/dtheta of every term-table hyperparameter (terms.cuh: explicit
+// device functions, no autodiff), and the logdet-correction traces
+// tr(W_hat K) and tr(W_hat).
 //
 // The TPU grid ran in order and added into SMEM scalars across steps. A
-// CUDA grid runs in parallel, so each block writes one partial per output
-// into a (tiles, n_out) buffer and a second kernel sums the partials of
-// each output in a fixed order, in double: the result is deterministic,
-// with no atomics.
+// CUDA grid runs in parallel, so each quadrant writes one partial per
+// output into a (64-wide tiles, n_out) buffer and a second kernel sums the
+// partials of each output in a fixed order, in double: the result is
+// deterministic, with no atomics.
 //
-// Bound: operations (N^3/3 FLOPs of the K^-1 tiles at the FP32 FMA rate;
-// the epilogue is O(N^2)). Design: L^-1 is read in place, only the k >= i
-// range of each tile is visited, and neither K^-1 nor W reaches memory.
+// Bound on an H100 SXM: operations. At N = 16,384 the K^-1 tiles are
+// N^3 / 3 useful FLOPs: in 3xTF32, N^3 tensor-core FLOPs at 494.7 TFLOP/s
+// dense TF32 take 8.89 ms; as FP32 FMAs on the CUDA cores (67 TFLOP/s)
+// 21.88 ms. The epilogue is O(N^2).
+//
+// Design:
+// - The products run on the shared 3xTF32 core (mma_tf32.cuh), as trmm's
+//   do: hi/lo split in registers, three mma.sync m16n8k8 per product, the
+//   truncating accumulator folded every 64 k into a float-float sum by an
+//   exact TwoSum. The K^-1 entry handed to the epilogue is that sum
+//   rounded once. Unlike trmm, each 8-deep step's MMAs start from zero and
+//   a rounded add takes them into the accumulator (STEP_ROUND): tr(K^-1)
+//   sums positive terms only, and the accumulator's truncation bias (~4
+//   f32 ulps of each 64-deep slab) would put it at the edge of its 4-ulp
+//   check.
+// - Both operands are columns of L^-1 read in place: opA(i, k) = Li[k, i]
+//   is M-major and opB(k, j) = Li[k, j] N-major, so both stage as rows of
+//   BN + 4 floats along k and every fragment read is free of bank
+//   conflicts; no transposed copy of L^-1 is made.
+// - 128 x 128 block tiles (8 warps of 64 x 32) under a 4-stage cp.async
+//   ring; only the k >= i range of each tile is read (L^-1 is lower
+//   triangular). The grid runs the tile rows in order, so the longest
+//   k-ranges start first. Where n = 64 (mod 128) the last tile row's lower
+//   half lies past n: its loads read zeros and its quadrants are skipped.
+// - The finished tile is staged through the ring's shared memory into the
+//   epilogue's 4 x 4 thread layout, so logml_probe_grad.cu's epilogue and
+//   the partials buffer stay as they were; neither K^-1 nor W reaches
+//   device memory.
 #include "grad_epilogue.cuh"
+#include "mma_tf32.cuh"
 
-using namespace gpx;
+namespace {
 
-__global__ void __launch_bounds__(THREADS)
+using T = gpx::tf32::Big;
+constexpr int QUAD = gpx::BM;       // the epilogue's 64 x 64 tile
+constexpr int KTS = T::BN + 16;     // row stride of the staged K^-1 tile
+static_assert(T::THREADS == gpx::THREADS, "the epilogue's thread count");
+static_assert(T::BM == 2 * QUAD && T::BN == 2 * QUAD, "2 x 2 quadrants");
+static_assert(T::BM * KTS * 4 <= T::SMEM_BYTES, "the staged tile");
+
+template <bool VEC>
+__global__ void __launch_bounds__(T::THREADS, 1)
 logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
                   const float* __restrict__ x, int d,
                   const float* __restrict__ alpha, int n,
                   const int* __restrict__ table, int n_terms,
                   const float* __restrict__ params, int n_params,
                   float* __restrict__ partials) {
-  __shared__ TileSmem sm;
-  __shared__ TermSmem ts;
-  __shared__ float red[THREADS / 32];
-  load_terms(table, n_terms, params, n_params, ts);
+  extern __shared__ __align__(16) float smem[];
+  __shared__ gpx::TermSmem ts;
+  __shared__ float red[T::THREADS / 32];
+  gpx::load_terms(table, n_terms, params, n_params, ts);
 
   int bi, bj;
-  lower_tile(blockIdx.x, bi, bj);
-  const int i0 = bi * BM, j0 = bj * BN;
-  float kinv[4][4];
-  tile_product<true, false>(li, ldli, li, ldli, i0, j0, i0, n, n, n, kinv,
-                            sm);
-  grad_epilogue(kinv, i0, j0, x, d, alpha, ts, n_terms, n_params, red,
-                partials + (int64_t)blockIdx.x * (n_params + 2));
+  gpx::lower_tile(blockIdx.x, bi, bj);
+  const int i0 = bi * T::BM, j0 = bj * T::BN;
+  auto load = [&](int stage, int k0) {
+    float* as = smem + stage * T::STAGE_FLOATS;
+    float* bs = as + T::A_FLOATS;
+    gpx::tf32::load_nmajor<T, VEC>(as, li, ldli, k0, n, i0, n);
+    gpx::tf32::load_nmajor<T, VEC>(bs, li, ldli, k0, n, j0, n);
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp / T::WN) * T::MI * 16;  // warp's first row in the tile
+  const int wc = (warp % T::WN) * T::NI * 8;   // and first column
+  float acc[T::MI][T::NI][4], sum[T::MI][T::NI][4];
+  gpx::tf32::mainloop<T, true, false, true>(smem, load, i0, n, wr, wc, acc,
+                                            sum);
+
+  // every warp is done with the ring: stage the K^-1 tile in it
+  __syncthreads();
+  float* kt = smem;
+#pragma unroll
+  for (int mi = 0; mi < T::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr + mi * 16 + g + 8 * h, c = wc + ni * 8 + 2 * t;
+        kt[r * KTS + c] = __fadd_rn(sum[mi][ni][2 * h], acc[mi][ni][2 * h]);
+        kt[r * KTS + c + 1] =
+            __fadd_rn(sum[mi][ni][2 * h + 1], acc[mi][ni][2 * h + 1]);
+      }
+  __syncthreads();
+
+  // the quadrants on or below the diagonal and inside n, each with its own
+  // row of partials (the 64-wide tile order of lower_tile)
+  const int nq = n / QUAD, tx = gpx::tile_tx(), ty = gpx::tile_ty();
+  for (int qi = 0; qi < 2; ++qi) {
+    const int qr = 2 * bi + qi;
+    if (qr >= nq) break;
+    for (int qj = 0; qj < 2; ++qj) {
+      const int qc = 2 * bj + qj;
+      if (qc > qr) break;
+      float kinv[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          kinv[r][c] = kt[(qi * QUAD + ty + 16 * r) * KTS + qj * QUAD + tx +
+                          16 * c];
+      const int64_t tile = (int64_t)qr * (qr + 1) / 2 + qc;
+      gpx::grad_epilogue(kinv, qr * QUAD, qc * QUAD, x, d, alpha, ts, n_terms,
+                         n_params, red, partials + tile * (n_params + 2));
+    }
+  }
 }
+
+template <bool VEC>
+int launch(const float* li, int64_t ldli, const float* x, int d,
+           const float* alpha, int n, const int* table, int n_terms,
+           const float* params, int n_params, float* partials,
+           cudaStream_t s) {
+  static bool attr = false;
+  auto kern = logml_grad_kernel<VEC>;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  const int nb = (n + T::BM - 1) / T::BM;
+  kern<<<nb * (nb + 1) / 2, T::THREADS, T::SMEM_BYTES, s>>>(
+      li, ldli, x, d, alpha, n, table, n_terms, params, n_params, partials);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -54,19 +156,19 @@ int gpx_logml_grad(const float* li, int64_t ldli, const float* x, int d,
                    const float* alpha, int n, const int* table, int n_terms,
                    const float* params, int n_params, float* partials,
                    float* out, void* stream) {
-  if (n % BM || n_terms < 1 || n_terms > GPX_MAX_TERMS ||
+  if (n % QUAD || n_terms < 1 || n_terms > GPX_MAX_TERMS ||
       n_params > 2 * GPX_MAX_TERMS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = n / BM;
-  const int tiles = nb * (nb + 1) / 2;
-  logml_grad_kernel<<<tiles, THREADS, 0, s>>>(li, ldli, x, d, alpha, n, table,
-                                              n_terms, params, n_params,
-                                              partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<n_params + 2, 256, 0, s>>>(partials, tiles,
-                                                      n_params + 2, out);
+  const int err = gpx::tf32::aligned(li, ldli)
+      ? launch<true>(li, ldli, x, d, alpha, n, table, n_terms, params,
+                     n_params, partials, s)
+      : launch<false>(li, ldli, x, d, alpha, n, table, n_terms, params,
+                      n_params, partials, s);
+  if (err != cudaSuccess) return err;
+  const int nq = n / QUAD;
+  gpx::reduce_partials_kernel<<<n_params + 2, 256, 0, s>>>(
+      partials, nq * (nq + 1) / 2, n_params + 2, out);
   return (int)cudaGetLastError();
 }
 

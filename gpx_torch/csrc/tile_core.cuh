@@ -1,25 +1,23 @@
-// One FP32 SIMT tile-product core, shared by trmm.cu (trmm, syrk_lower) and
-// logml_grad.cu (the K^-1 tiles of the fused gradient).
+// The FP32 SIMT tile-product core of logml_probe_grad.cu (the s-deep
+// products of the probe estimate), the 4 x 4 thread layout of a 64 x 64
+// tile that grad_epilogue.cuh reads, and lower_tile. trmm.cu and
+// logml_grad.cu run on the 3xTF32 tensor-core core (mma_tf32.cuh).
 //
 // A block of 256 threads computes one 64x64 output tile
 //     acc(i, j) = sum_{k in [k_lo, k_hi)} opA(i, k) * opB(k, j)
 // staging 16-deep k-slices of both operands through shared memory, with a
 // 4x4 register micro-tile per thread. Each operand is a row-major matrix
 // with a leading dimension; A_T / B_T read it transposed
-// (opA(i, k) = A[k * lda + i], opB(k, j) = B[j * ldb + k]), so triangular
-// and Gram-shaped products need no copy. Loads are masked at the ragged
-// edges (rows >= m_lim, cols >= n_lim, k >= k_hi read as 0). Each 16-deep
-// slice is summed in float and the slices in double. With one running
-// float sum per entry the bench case missed the f32 envelope (White
-// gradient 1.2e-5 and sigma gradient 1.4e-2 relative at N = 16,384, with
-// the gradient kernel already summing in double; PERF.md): the error of
-// the factor's products reaches the gradient through the K^-1 traces.
+// (opA(i, k) = A[k * lda + i], opB(k, j) = B[j * ldb + k]). Loads are
+// masked at the ragged edges (rows >= m_lim, cols >= n_lim, k >= k_hi read
+// as 0). Each 16-deep slice is summed in float and the slices in double:
+// with one running float sum per entry the bench case missed the f32
+// envelope (PERF.md).
 //
-// Bound: at the sizes of the Cholesky recursion these products are
-// operation-bound (FP32 FMA on the CUDA cores, 67 TFLOP/s peak on an H100
-// SXM). The design keeps each operand element read from shared memory for
-// 4 FMAs and coalesces the global loads along the contiguous dimension of
-// each layout; tensor cores (3xTF32) are later work.
+// Bound: operations (FP32 FMA on the CUDA cores, 67 TFLOP/s peak on an
+// H100 SXM). The design keeps each operand element read from shared memory
+// for 4 FMAs and coalesces the global loads along the contiguous dimension
+// of each layout.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -16,6 +16,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    n = 4096, 4160 and 16384, repeated calls bitwise); kernel, plain and
    library times; the spine factorization and its solves; chol_inv's
    products by level; chol_inv at base 64 and 128 on a padded Gram;
+   then (``phase_families``) the Gram and gradient kernels on every other
+   family of the term table (Matern 1/2 ... 7/2, RQ, Periodic, each plus
+   White, and SE * Periodic + White) against float64, the ARD leg at D = 3
+   in both gradient kernels, each family's times beside SE + White's, and
+   the ARD leg's cost at D = 3 and 16;
 3. the end-to-end bench case (numpy seed 0, x ~ U(-10, 10) of shape
    (16384, 1), y ~ N(0, 1), SE(3.0, 5.5) + White(0.5), float32) through
    ``gp.logml_value_and_grad``, held against the non-fused route run in
@@ -23,14 +28,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernel's launch count in that call; ms/eval;
    fused against non-fused times at n = 1024 ... 16384; then the same case
    through ``method="hybrid"`` (three probe seeds, and n = 9000), its
-   launch counts, ms/eval and the times of its stages;
+   launch counts, ms/eval and the times of its stages; then
+   (``phase_families_e2e``) F1, SE(2, 3) * Matern(1, 5/2, 4) + White(0.1),
+   and F2, Ard(Matern(2, 5/2, 1) + White(0.25)) on D = 3, through the
+   exact path on the same data, F2 through the hybrid, and a Gram that is
+   not positive definite (NaN on both exact routes, -inf when safe);
 4. the matrix-free path (``phase_iterative``, the case of
    ``examples/large_n.py``): the two matvec kernels against their plain
-   versions, ``gp_iterative.logml_value_and_grad_iterative`` at N = 32,768
+   versions (SE + White and Matern 3/2 + White; every family timed),
+   ``gp_iterative.logml_value_and_grad_iterative`` at N = 32,768
    (three seeds) against the dense float64 logML and against the same
-   estimator in float64, ``fit_iterative`` against a dense float64
-   posterior, one eval at N = 131,072 with its memory, launch counts, stage
-   times and ms/eval;
+   estimator in float64, one Matern 3/2 + White eval likewise,
+   ``fit_iterative`` against a dense float64 posterior, one eval at
+   N = 131,072 with its memory, launch counts, stage times and ms/eval;
 5. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
     python3 chip_smoke.py --no-iterative
@@ -38,6 +48,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 runs phases 1-3 only and ends after their summary, with no ``kernels``
 line and no ``ok`` line: for comparing two trees on one card, where
 phase 4 runs none of the factor's or the gradient's kernels.
+
+    python3 chip_smoke.py --bench-only
+
+runs phase 1 and phase 3's SE + White cases (exact and hybrid) only. They
+use nothing that earlier trees of the port lack, so a copy of this script
+beside an earlier tree's ``gpx_torch`` times both trees alike.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -509,6 +525,134 @@ def phase_kernels(torch, gt):
                      "probe_ms": {s: v[0] for s, v in probe_ms.items()}}
 
 
+# -- phase 2b: the other kernel families on the term table -----------------
+
+# Gram entries against float64, in f32 ulps of each entry's scale |K| + 2 r2
+# |dK/dr2| (|dK/dr2| the sum of its terms' magnitudes): the f32 r2 carries
+# ~1.5 ulps and the family's argument (s = c d / l, d / period, z) a few
+# more, which the function's own slope scales, and the evaluation (expf,
+# log1pf, sinpif, the Matern recurrence's p steps) a few ulps of |K|
+FAMILY_ULPS = 16.0
+# special-function-unit operations per Gram entry (one sqrtf for Matern and
+# Periodic; expf, and log1pf for RQ; sinpif / cospif are FMA polynomials)
+SFU_PER_ENTRY = {"se+white": 1, "matern12+white": 2, "matern32+white": 2,
+                 "matern52+white": 2, "matern72+white": 2, "rq+white": 2,
+                 "periodic+white": 2, "se*periodic+white": 3}
+ELL3 = [0.7, 2.3, 1.4]
+
+
+def _families(gt, dtype=None):
+    """The kernels phase 2b holds: each family plus White, and one product
+    (name -> kernel on the card); SE + White, the bench's, first."""
+    kw = {"device": "cuda", "dtype": dtype}
+    return {
+        "se+white": gt.se(3.0, 5.5, **kw) + gt.white(0.5, **kw),
+        "matern12+white": gt.matern(1.0, 0.5, 2.0, **kw) + gt.white(0.25, **kw),
+        "matern32+white": gt.matern(1.0, 1.5, 2.0, **kw) + gt.white(0.25, **kw),
+        "matern52+white": gt.matern(1.0, 2.5, 2.0, **kw) + gt.white(0.25, **kw),
+        "matern72+white": gt.matern(1.0, 3.5, 2.0, **kw) + gt.white(0.25, **kw),
+        "rq+white": gt.rational_quadratic(1.0, 0.7, 2.0, **kw)
+        + gt.white(0.25, **kw),
+        "periodic+white": gt.periodic(1.0, 3.1, 1.4, **kw) + gt.white(0.25, **kw),
+        "se*periodic+white": gt.se(2.0, 3.0, **kw) * gt.periodic(1.0, 2.5, 4.0, **kw)
+        + gt.white(0.25, **kw),
+    }
+
+
+def _hold_gram(torch, gt, label, kern, x, nugget=1e-3) -> float:
+    """The Gram kernel against its plain version in float64 on the same f32
+    x, within FAMILY_ULPS of each entry's scale; returns the largest
+    absolute error."""
+    from gpx_torch.ops import cuda_gram
+    from gpx_torch.ops.distance import sq_distances
+    from gpx_torch.ops.terms import term_dr2
+
+    got = cuda_gram.gram_cuda(kern, x, nugget=nugget)
+    k64, x64 = _f64_kernel(gt, kern), x.double()
+    want = cuda_gram.gram_reference(k64, x64, None, nugget)
+    r2 = sq_distances(x64)
+    # the smallest normal f32 as a floor: f32 entries below it underflow
+    scale = (want.abs() + 2.0 * r2 * term_dr2(k64, r2, absolute=True)
+             + 2.0 ** -126)
+    return _hold_ulps(torch, f"gram {label} n={x.shape[0]} d={x.shape[1]}", got,
+                      want, scale, FAMILY_ULPS)
+
+
+def phase_families(torch, gt):
+    """Phase 2b: the Gram and both gradient kernels on every family of the
+    term table against float64 (_hold_gram at n = 4096, D = 1 and 3;
+    logml_kernel_grads at n = 4096 and 4160 and the ARD leg at D = 3;
+    logml_probe_grads with ARD), and each family's Gram and gradient time at
+    N = 16,384 beside SE + White's; the ARD leg's cost at D = 3 and 16."""
+    from gpx_torch.ops import cuda_chol, cuda_gram, cuda_logml_grad
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.rand((N_BENCH, 1), generator=gen, device=dev) * 20.0 - 10.0
+    x3 = torch.rand((4096, 3), generator=gen, device=dev) * 20.0 - 10.0
+    u3 = x3 / torch.tensor(ELL3, device=dev)
+    _, m16 = cuda_chol.chol_inv(cuda_gram.gram_cuda(
+        _families(gt)["se+white"], x, nugget=1e-3))
+    alpha16 = torch.randn(N_BENCH, generator=gen, device=dev) * 0.1
+    out = {}
+    for name, kern in _families(gt).items():
+        if name != "se+white":
+            _hold_gram(torch, gt, name, kern, x[:4096])
+            _hold_gram(torch, gt, name, kern, u3)
+            for n in (4096, 4160):
+                xs = x[:n].contiguous()
+                _, m = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, xs, nugget=1e-3))
+                alpha = torch.randn(n, generator=gen, device=dev) * 0.1
+                _hold_grads(torch, gt, kern, xs, alpha, m, label=f"{name} ",
+                            witness=True)
+            del m
+        # the ARD leg at D = 3 (Periodic of a 3-D distance is not positive
+        # definite: its Gram does not factor)
+        if name != "se+white" and "periodic" not in name:
+            _, m = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, u3, nugget=1e-3))
+            alpha = torch.randn(4096, generator=gen, device=dev) * 0.1
+            _hold_grads(torch, gt, kern, u3, alpha, m, ard=True, label=f"{name} ",
+                        witness=True)
+            if name == "matern52+white":
+                z = _rademacher(torch, (4096, 64), gen)
+                u = m.T @ (m @ z)
+                _hold_probe(torch, gt, kern, u3, alpha, u, z, ard=True,
+                            label=f"{name} ", witness=True)
+            del m
+        gram = time_ms(torch, lambda: cuda_gram.gram_cuda(kern, x, nugget=1e-3))
+        grad = time_ms(torch, lambda: cuda_logml_grad.logml_kernel_grads(
+            kern, x, alpha16, m16), reps=3)
+        gram_bound = bound_ms(nbytes=4.0 * N_BENCH * N_BENCH,
+                              exps=float(SFU_PER_ENTRY[name]) * N_BENCH ** 2)
+        out[name] = {"gram_ms": gram, "gram_bound_ms": gram_bound[0],
+                     "gram_bound_by": gram_bound[1], "grad_ms": grad}
+        print(f"family {name} n={N_BENCH}: gram {gram:.3f} ms (bound "
+              f"{gram_bound[0]:.3f} ms, {gram_bound[1]}); logml_kernel_grads "
+              f"{grad:.3f} ms", flush=True)
+    # the ARD leg's cost: D more block sums per 64^2 tile
+    kern = _families(gt)["matern52+white"]
+    for d in (3, 16):
+        xd = torch.rand((N_BENCH, d), generator=gen, device=dev)
+        plain = time_ms(torch, lambda: cuda_logml_grad.logml_kernel_grads(
+            kern, xd, alpha16, m16), reps=3)
+        ard = time_ms(torch, lambda: cuda_logml_grad.logml_kernel_grads(
+            kern, xd, alpha16, m16, ard=True), reps=3)
+        z = _rademacher(torch, (N_BENCH, 64), gen)
+        probe = time_ms(torch, lambda: cuda_logml_grad.logml_probe_grads(
+            kern, xd, alpha16, z, z), reps=5)
+        probe_ard = time_ms(torch, lambda: cuda_logml_grad.logml_probe_grads(
+            kern, xd, alpha16, z, z, ard=True), reps=5)
+        out[f"ard_d{d}"] = {"ms": ard, "without_ard_ms": plain,
+                            "probe_ms": probe_ard, "probe_without_ard_ms": probe}
+        print(f"logml_kernel_grads matern52+white n={N_BENCH} d={d}: ard "
+              f"{ard:.3f} ms, without ard {plain:.3f} ms; logml_probe_grads "
+              f"s=64: ard {probe_ard:.3f} ms, without ard {probe:.3f} ms",
+              flush=True)
+    del m16
+    torch.cuda.empty_cache()
+    return out
+
+
 def _chol_residuals(torch, k, l, m):
     """||L L^T - K|| / ||K|| and ||M L - I|| / ||I|| (Frobenius), formed in
     float64: an f32 product would add its own rounding of the same size.
@@ -642,7 +786,7 @@ def _check_spine(torch, kmat, lf, mf, inv, gen):
     return {"ms": ms, "trmm_launches": trmm_launches, "residuals": res}
 
 
-def _hold(label, got, want, scales, names) -> float:
+def _hold(label, got, want, scales, names, witness=None) -> float:
     """Each output p of a gradient kernel against its plain version in
     float64 on the same f32 inputs; returns the largest absolute error.
 
@@ -650,58 +794,88 @@ def _hold(label, got, want, scales, names) -> float:
     (_term_scales), and must meet two limits:
     - 4 f32 ulps of scale_p: the kernel's rounding (f32 K^-1 tile dots,
       then the tile sums) adds with random signs over the n^2 entries;
+      with a ``witness`` (the plain version's own outputs in float32 on
+      the same inputs), twice its error where that is larger: a family's
+      f32 argument can be ill-conditioned (Periodic's d / period up to 6.5
+      here puts ~20 ulps into sin), and no f32 kernel can do better;
     - 1e-2 of the output's own value, so that a dropped, mis-signed or
       mis-scaled derivative term fails even where a cancellation makes
       scale_p large (h at n = 4096: value 1.7, scale 2.7e4).
     """
     eps = 1.1920928955078125e-07  # float32
     err = 0.0
-    for g, w, s, nm in zip(got, want, scales, names):
-        e, limit = abs(g - w), min(4.0 * eps * s, 1e-2 * abs(w))
+    witness = [None] * len(got) if witness is None else witness
+    for g, w, s, nm, f in zip(got, want, scales, names, witness):
+        ulps = 4.0 * eps * s
+        if f is not None:
+            ulps = max(ulps, 2.0 * abs(f - w))
+        e, limit = abs(g - w), min(ulps, 1e-2 * abs(w))
         print(f"{label} {nm}: kernel {g:.6e} reference {w:.6e} err {e:.3e} "
-              f"limit {limit:.3e} scale {s:.3e}", flush=True)
+              f"limit {limit:.3e} scale {s:.3e}"
+              + ("" if f is None else f" plain-f32 err {abs(f - w):.3e}"),
+              flush=True)
         check(e <= limit, f"{label} {nm} disagrees")
         err = max(err, e)
     return err
 
 
-_NAMES = ("h", "sigma", "white", "tkw", "trw")
-
-
 def _outputs(gt, out):
-    d_kernel, traces = out
-    return [float(t) for t in (*gt.params.leaves(d_kernel), *traces)]
+    """The flat outputs of a gradient kernel: the hyperparameters, the two
+    traces, and with ARD the sums sdot."""
+    d_kernel, traces, *sdot = out
+    return [float(t) for t in (*gt.params.leaves(d_kernel), *traces,
+                               *(sdot[0] if sdot else ()))]
 
 
-def _k64(torch, gt, device):
-    f64 = {"dtype": torch.float64, "device": device}
-    return gt.se(3.0, 5.5, **f64) + gt.white(0.5, **f64)
+def _names(gt, kern, d=0):
+    return [*gt.params.names(kern), "tkw", "trw",
+            *(f"sdot{e}" for e in range(d))]
 
 
-def _hold_grads(torch, gt, kern, x, alpha, l_inv) -> float:
-    """logml_kernel_grads against its plain version (_hold)."""
+def _f64_kernel(gt, kern):
+    """The same kernel with its hyperparameters in float64."""
+    return gt.params.unflatten(kern, [t.double() for t in gt.params.leaves(kern)])
+
+
+def _hold_grads(torch, gt, kern, x, alpha, l_inv, ard=False, label="",
+                witness=False) -> float:
+    """logml_kernel_grads against its plain version (_hold); with ``ard``,
+    ``x`` holds the scaled coordinates and the sums sdot are held too;
+    ``witness``: _hold's float32 plain version as a second limit."""
     from gpx_torch.ops import cuda_logml_grad
 
-    got = _outputs(gt, cuda_logml_grad.logml_kernel_grads(kern, x, alpha, l_inv))
-    args = (_k64(torch, gt, x.device), x.double(), alpha.double())
+    got = _outputs(gt, cuda_logml_grad.logml_kernel_grads(kern, x, alpha, l_inv,
+                                                          ard=ard))
+    args = (_f64_kernel(gt, kern), x.double(), alpha.double())
     l64 = l_inv.double()
-    want = _outputs(gt, cuda_logml_grad.logml_kernel_grads_reference(*args, l64))
-    scales = _term_scales(torch, *args, l64.T @ l64)
-    return _hold(f"logml_kernel_grads n={x.shape[0]}", got, want, scales, _NAMES)
+    want = _outputs(gt, cuda_logml_grad.logml_kernel_grads_reference(
+        *args, l64, ard=ard))
+    f32 = (_outputs(gt, cuda_logml_grad.logml_kernel_grads_reference(
+        kern, x, alpha, l_inv, ard=ard)) if witness else None)
+    scales = _term_scales(torch, *args, l64.T @ l64, ard=ard)
+    return _hold(f"logml_kernel_grads {label}n={x.shape[0]}"
+                 + (f" ard d={x.shape[1]}" if ard else ""), got, want, scales,
+                 _names(gt, kern, x.shape[1] if ard else 0), f32)
 
 
-def _hold_probe(torch, gt, kern, x, alpha, u, z) -> float:
+def _hold_probe(torch, gt, kern, x, alpha, u, z, ard=False, label="",
+                witness=False) -> float:
     """logml_probe_grads against its plain version (_hold)."""
     from gpx_torch.ops import cuda_logml_grad
 
-    got = _outputs(gt, cuda_logml_grad.logml_probe_grads(kern, x, alpha, u, z))
-    args = (_k64(torch, gt, x.device), x.double(), alpha.double())
+    got = _outputs(gt, cuda_logml_grad.logml_probe_grads(kern, x, alpha, u, z,
+                                                         ard=ard))
+    args = (_f64_kernel(gt, kern), x.double(), alpha.double())
     u64, z64 = u.double(), z.double()
-    want = _outputs(gt, cuda_logml_grad.logml_probe_grads_reference(*args, u64, z64))
+    want = _outputs(gt, cuda_logml_grad.logml_probe_grads_reference(
+        *args, u64, z64, ard=ard))
+    f32 = (_outputs(gt, cuda_logml_grad.logml_probe_grads_reference(
+        kern, x, alpha, u, z, ard=ard)) if witness else None)
     what = (u64 @ z64.T + z64 @ u64.T) * (0.5 / z.shape[1])
-    scales = _term_scales(torch, *args, what)
-    return _hold(f"logml_probe_grads n={x.shape[0]} s={z.shape[1]}", got, want,
-                 scales, _NAMES)
+    scales = _term_scales(torch, *args, what, ard=ard)
+    return _hold(f"logml_probe_grads {label}n={x.shape[0]} s={z.shape[1]}"
+                 + (f" ard d={x.shape[1]}" if ard else ""), got, want, scales,
+                 _names(gt, kern, x.shape[1] if ard else 0), f32)
 
 
 def _probe_identity(torch, gt, kern, x, gen) -> None:
@@ -719,24 +893,29 @@ def _probe_identity(torch, gt, kern, x, gen) -> None:
     u = (kinv * math.sqrt(n)).float()
     got = _outputs(gt, cuda_logml_grad.logml_probe_grads(kern, x, alpha, u, z))
     want = _outputs(gt, cuda_logml_grad.logml_kernel_grads(kern, x, alpha, m))
-    scales = _term_scales(torch, _k64(torch, gt, x.device), x.double(),
+    scales = _term_scales(torch, _f64_kernel(gt, kern), x.double(),
                           alpha.double(), kinv)
     _hold(f"logml_probe_grads n={n} s={n} identity probes vs logml_kernel_grads",
-          got, want, scales, _NAMES)
+          got, want, scales, _names(gt, kern))
 
 
-def _term_scales(torch, kernel, x, alpha, kinv):
+def _term_scales(torch, kernel, x, alpha, kinv, ard=False):
     """sum |W_ij dk_ij/dtheta_p| per hyperparameter, with W = 0.5 (alpha
-    alpha^T - kinv), and the sums of |terms| of the two traces, in
-    float64."""
+    alpha^T - kinv), the sums of |terms| of the two traces, and with ARD
+    sum |W_ij| |K'_ij| (x_ie - x_je)^2 per dimension (|K'| the sum of its
+    terms' magnitudes), in float64."""
     from gpx_torch.ops.distance import sq_distances
-    from gpx_torch.ops.terms import term_derivatives
+    from gpx_torch.ops.terms import term_derivatives, term_dr2
 
     w = 0.5 * (torch.outer(alpha, alpha) - kinv)
     r2 = sq_distances(x)
     out = [float(torch.sum((w * dk).abs())) for dk in term_derivatives(kernel, r2)]
     out.append(float(torch.sum((kinv * kernel.evaluate_r2(r2)).abs())))
     out.append(float(torch.sum(torch.diagonal(kinv).abs())))
+    if ard:
+        wk = w.abs() * term_dr2(kernel, r2, absolute=True)
+        out += [float(torch.sum(wk * (x[:, e, None] - x[None, :, e]) ** 2))
+                for e in range(x.shape[1])]
     return out
 
 
@@ -750,7 +929,6 @@ def phase_bench(torch, gt, records):
     params = gt.Parameters(mean=gt.zero(), kernel=gt.se(3.0, 5.5) + gt.white(0.5))
     x = torch.as_tensor(x_np, device="cuda")
     y = torch.as_tensor(y_np, device="cuda")
-    check(gp._fused_gate(params.kernel, x), "bench case is not on the fused route")
 
     counters = _counters()
     for c in counters.values():
@@ -771,8 +949,9 @@ def phase_bench(torch, gt, records):
     _value_terms(torch, gt, gp, params.kernel, x, y)
     # off the tile grid: n = 9000 pads to 9088 (uneven Schur splits)
     n_off = 9000
-    check(gp._fused_gate(params.kernel, x[:n_off]), "n=9000 is not fused")
+    counters["logml_kernel_grads"].launches = 0
     value, grads = gp.logml_value_and_grad(params, x[:n_off], y[:n_off])
+    check(counters["logml_kernel_grads"].launches == 1, "n=9000 is not fused")
     _against_f64(torch, gt, gp, x[:n_off], y[:n_off], value, grads, "n=9000")
     # autodiff on the card: the Gram kernel's backward is the plain VJP
     value, grads = gp.logml_value_and_grad(params, x[:1024], y[:1024],
@@ -805,6 +984,181 @@ def phase_bench(torch, gt, records):
               f"{row['nonfused']:.3f} ms", flush=True)
     return {"ms_per_eval": eval_ms, "value_rel": v_rel, "grad_rel": rel,
             "h_abs": h_abs, "routes": crossover}
+
+
+def _leaf_kinds(gt, kern):
+    """"white" or "other" per scalar hyperparameter, in leaves order."""
+    if isinstance(kern, (gt.Sum, gt.Product)):
+        return [k for t in kern.kernels for k in _leaf_kinds(gt, t)]
+    if isinstance(kern, gt.Ard):
+        return _leaf_kinds(gt, kern.base) + ["other"] * kern.ell.numel()
+    kind = "white" if isinstance(kern, gt.White) else "other"
+    return [kind] * sum(t.numel() for t in gt.params.leaves(kern))
+
+
+def _flat_result(gt, value, grads):
+    return [float(value)] + [float(v) for t in gt.params.leaves(grads.kernel)
+                             for v in t.reshape(-1)]
+
+
+def _f64_result(torch, gt, gp, params, x, y):
+    """The oracle: the non-fused route (torch.linalg) in float64 on the card."""
+    p64 = gt.Parameters(mean=gt.zero(), kernel=_f64_kernel(gt, params.kernel))
+    return _flat_result(gt, *gp.logml_value_and_grad(p64, x.double(), y.double()))
+
+
+def _exact_family(torch, gt, gp, label, params, x, y):
+    """A family's exact path at N = 16,384 through gp.logml_value_and_grad:
+    the fused route by its launch counts (1 Gram, 128 leaves, 1 gradient),
+    each output against float64 (the non-fused route on the card), beside
+    the float32 torch.linalg route's error (the route such a kernel took
+    before it had device functions), and both routes' ms/eval.
+
+    Each output must meet the bench's f32 envelope (value 1e-4 relative,
+    White 1e-5 relative, other gradients 1e-2 relative or 0.5 absolute) or
+    be no worse than twice the float32 torch.linalg route's own error."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    value, grads = gp.logml_value_and_grad(params, x, y)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"{label} launches: {json.dumps(launches)}", flush=True)
+    check(launches["gram"] == 1 and launches["chol_inv_tile_off"] == 128
+          and launches["logml_kernel_grads"] == 1
+          and launches["logml_probe_grads"] == 0,
+          f"{label} did not take the fused route")
+    got = _flat_result(gt, value, grads)
+    want = _f64_result(torch, gt, gp, params, x, y)
+    keep = gp.FUSED_MIN_N
+    gp.FUSED_MIN_N = x.shape[0] + 1
+    try:
+        check(not gp._fused_gate(params.kernel, x), "the route did not switch")
+        lin = _flat_result(gt, *gp.logml_value_and_grad(params, x, y))
+        lin_ms = time_ms(torch, lambda: gp.logml_value_and_grad(params, x, y),
+                         reps=3)
+    finally:
+        gp.FUSED_MIN_N = keep
+    names = ["value"] + gt.params.names(params.kernel)
+    kinds = ["value"] + _leaf_kinds(gt, params.kernel)
+    worst = {}
+    for nm, kind, g, w, li in zip(names, kinds, got, want, lin):
+        err, lin_err = abs(g - w), abs(li - w)
+        rel = err / abs(w) if w else math.inf
+        env = {"value": rel <= 1e-4, "white": rel <= 1e-5}.get(
+            kind, rel <= 1e-2 or err <= 0.5)
+        print(f"{label} {nm}: fused f32 {g:.8e} f64 {w:.8e} err {err:.3e} rel "
+              f"{rel:.3e} (envelope {'met' if env else 'missed'}); torch.linalg "
+              f"f32 {li:.8e} err {lin_err:.3e} (2x: {2.0 * lin_err:.3e})",
+              flush=True)
+        check(math.isfinite(g), f"{label} {nm}: not finite")
+        check(env or err <= 2.0 * lin_err, f"{label} {nm}: outside the f32 "
+              f"envelope and worse than twice the torch.linalg route's error")
+        worst[nm] = {"err": err, "rel": rel, "linalg_err": lin_err}
+    eval_ms, ms = _median_ms(torch, lambda: gp.logml_value_and_grad(params, x, y))
+    print(f"{label} ms/eval (median of 5, CUDA events): fused {eval_ms:.2f} "
+          f"{ms}; torch.linalg f32 {lin_ms:.2f}", flush=True)
+    return {"ms_per_eval": eval_ms, "linalg_ms_per_eval": lin_ms,
+            "launches": launches, "errors": worst}, want
+
+
+def phase_families_e2e(torch, gt):
+    """F1 and F2 at the bench's N = 16,384 (numpy seed 0, x ~ U(-10, 10),
+    y ~ N(0, 1), float32): F1 SE(2, 3) * Matern(1, 5/2, 4) + White(0.1) on
+    D = 1, F2 Ard(Matern(2, 5/2, 1) + White(0.25), [0.7, 2.3, 1.4]) on D =
+    3 (the JAX package's test kernels), exact (_exact_family); F2 also
+    through method="hybrid" for three probe seeds against the exact
+    float64, its errors recorded."""
+    from gpx_torch.models import gp
+
+    out = {}
+    for label, d in (("F1", 1), ("F2", 3)):
+        rng = np.random.default_rng(0)
+        x_np = rng.uniform(-10.0, 10.0, size=(N_BENCH, d)).astype(np.float32)
+        y_np = rng.normal(size=N_BENCH).astype(np.float32)
+        kern = (gt.se(2.0, 3.0) * gt.matern(1.0, 2.5, 4.0) + gt.white(0.1)
+                if label == "F1" else
+                gt.ard(gt.matern(2.0, 2.5, 1.0) + gt.white(0.25), ELL3))
+        params = gt.Parameters(mean=gt.zero(), kernel=kern)
+        x = torch.as_tensor(x_np, device="cuda")
+        y = torch.as_tensor(y_np, device="cuda")
+        out[label], want = _exact_family(torch, gt, gp, label, params, x, y)
+        torch.cuda.empty_cache()
+        if label == "F1":
+            continue
+        counters = _counters()
+        hyb, names = {}, ["value"] + gt.params.names(kern)
+        for seed in (0, 1, 2):
+            for c in counters.values():
+                c.launches = 0
+            key = torch.Generator(device="cuda").manual_seed(seed)
+            res = gp.logml_value_and_grad(params, x, y, method="hybrid",
+                                          probes=64, probe_key=key)
+            torch.cuda.synchronize()
+            check(counters["logml_probe_grads"].launches == 2
+                  and counters["logml_kernel_grads"].launches == 0,
+                  "F2 hybrid: not the probe kernel twice")
+            got = _flat_result(gt, *res)
+            errs = [abs(g - w) for g, w in zip(got, want)]
+            rels = [e / abs(w) if w else math.inf for e, w in zip(errs, want)]
+            print(f"F2 hybrid seed {seed}: " + "; ".join(
+                f"{nm} {g:.6e} (f64 {w:.6e}, err {e:.3e}, rel {r:.3e})"
+                for nm, g, w, e, r in zip(names, got, want, errs, rels)),
+                flush=True)
+            check(all(math.isfinite(g) for g in got), "F2 hybrid: not finite")
+            for nm, e, r in zip(names, errs, rels):
+                w_ = hyb.setdefault(nm, {"err": 0.0, "rel": 0.0})
+                w_["err"], w_["rel"] = max(w_["err"], e), max(w_["rel"], r)
+        eval_ms, ms = _median_ms(torch, lambda: gp.logml_value_and_grad(
+            params, x, y, method="hybrid", probes=64))
+        print(f"F2 hybrid ms/eval (median of 5, CUDA events): {eval_ms:.2f} "
+              f"{ms}; worst of three seeds: {json.dumps(hyb)}", flush=True)
+        out["F2_hybrid"] = {"ms_per_eval": eval_ms, "worst": hyb}
+        del x, y
+        torch.cuda.empty_cache()
+    out["not_spd"] = _not_spd(torch, gt, gp)
+    return out
+
+
+def _not_spd(torch, gt, gp):
+    """ROADMAP's reproducer (sorted U(-10, 10), SE(1, 200), nugget -1e-3) in
+    float32 on the card: at n = 300 (the torch.linalg route, analytic and
+    autodiff) and n = 4096 (the fused route: the leaf's reciprocal root of
+    a negative pivot) the value and every gradient must be NaN, not a
+    finite number; log_marginal_likelihood(safe=True) in float64 gives
+    -inf when every nugget fails (printed in float32)."""
+    out = {}
+    for n in (300, 4096):
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(np.sort(rng.uniform(-10.0, 10.0, size=n))
+                            .astype(np.float32), device="cuda")
+        y = torch.as_tensor(rng.normal(size=n).astype(np.float32), device="cuda")
+        params = gt.Parameters(mean=gt.zero(), kernel=gt.se(1.0, 200.0))
+        fused = gp._fused_gate(params.kernel, x[:, None])
+        check(fused == (n >= gp.FUSED_MIN_N), "not-SPD case: unexpected route")
+        for method in ("analytic", "autodiff") if n == 300 else ("analytic",):
+            got = _flat_result(gt, *gp.logml_value_and_grad(
+                params, x, y, nugget=-1e-3, method=method))
+            route = "fused" if fused and method == "analytic" else "torch.linalg"
+            print(f"not SPD n={n} {method} ({route}): value and gradients {got}",
+                  flush=True)
+            check(all(math.isnan(g) for g in got),
+                  f"not SPD n={n} {method}: not NaN")
+            out[f"n{n}_{method}"] = got
+    p64 = gt.Parameters(mean=gt.zero(), kernel=gt.se(1.0, 200.0, dtype=torch.float64))
+    rng = np.random.default_rng(0)
+    x3 = torch.as_tensor(np.sort(rng.uniform(-10.0, 10.0, size=300))
+                         .astype(np.float32), device="cuda")
+    y3 = torch.as_tensor(rng.normal(size=300).astype(np.float32), device="cuda")
+    safe64 = float(gp.log_marginal_likelihood(p64, x3.double(), y3.double(),
+                                              nugget=-1e-3, safe=True))
+    safe32 = float(gp.log_marginal_likelihood(params, x3, y3, nugget=-1e-3,
+                                              safe=True))
+    print(f"not SPD n=300 log_marginal_likelihood(safe=True): float64 {safe64}, "
+          f"float32 {safe32}", flush=True)
+    check(safe64 == -math.inf, "safe=True did not give -inf")
+    out["safe_f64"], out["safe_f32"] = safe64, safe32
+    return out
 
 
 def _value_terms(torch, gt, gp, kernel, x, y):
@@ -1008,6 +1362,11 @@ def _iter_kernel(gt, dtype=None):
         0.5, device="cuda", dtype=dtype)
 
 
+def _iter_matern(gt, dtype=None):
+    return gt.matern(2.0, 1.5, 3.0, device="cuda", dtype=dtype) + gt.white(
+        0.5, device="cuda", dtype=dtype)
+
+
 def _iter_counters():
     from gpx_torch.ops import cuda_gram, cuda_matvec
 
@@ -1051,7 +1410,7 @@ def _matvec_checks(torch, gt, records):
     nug = 1e-3
     errs = {"gram_matvec": 0.0, "cross_matvec": 0.0}
 
-    def gram_case(label, x, v, rows=None):
+    def gram_case(label, x, v, rows=None, kern=kern, k64=k64):
         xc = x - x.mean(dim=0, keepdim=True)
         got = cm.gram_matvec_cuda(kern, xc, v, nugget=nug)
         x64, v64 = xc.double(), v.double()
@@ -1066,7 +1425,7 @@ def _matvec_checks(torch, gt, records):
         errs["gram_matvec"] = max(errs["gram_matvec"],
                                   _hold_ulps(torch, label, got, want, scale, 4.0))
 
-    def cross_case(label, x1, x2, v):
+    def cross_case(label, x1, x2, v, kern=kern, k64=k64):
         c = x2.mean(dim=0, keepdim=True)
         x1c, x2c = x1 - c, x2 - c
         got = cm.cross_matvec_cuda(kern, x1c, x2c, v)
@@ -1103,6 +1462,27 @@ def _matvec_checks(torch, gt, records):
     vbig = torch.randn((N_SCALE, 9), generator=gen, device="cuda")
     gram_case(f"gram_matvec n={N_SCALE} d=1 r=9 (first {CHECK_ROWS} rows)",
               xbig, vbig, rows=CHECK_ROWS)
+    # Matern 3/2 + White: the path's width, the ragged and D = 12 shapes,
+    # and a cross product with duplicates across the sets
+    mk, mk64 = _iter_matern(gt), _iter_matern(gt, torch.float64)
+    gram_case(f"gram_matvec matern32+white n={N_IT} d=1 r=9", x,
+              torch.randn((N_IT, 9), generator=gen, device="cuda"), kern=mk,
+              k64=mk64)
+    gram_case(f"gram_matvec matern32+white n={N_RAGGED} d=2 r=3 (ragged)", xr,
+              torch.randn((N_RAGGED, 3), generator=gen, device="cuda"), kern=mk,
+              k64=mk64)
+    gram_case(f"gram_matvec matern32+white n={N_DUP} d=12 r=2 ({nd} duplicated "
+              f"points)", xd, torch.randn((N_DUP, 2), generator=gen, device="cuda"),
+              kern=mk, k64=mk64)
+    cross_case(f"cross_matvec matern32+white ({n1}, {n2}) d=2 r=3 (100 "
+               f"duplicates across the sets)", x1, x2,
+               torch.randn((n2, 3), generator=gen, device="cuda"), kern=mk,
+               k64=mk64)
+    # a product (evaluated in chunks of 8 entries) at the path's width
+    pk = _families(gt)["se*periodic+white"]
+    gram_case(f"gram_matvec se*periodic+white n={N_RAGGED} d=1 r=9 (ragged)",
+              xr[:, :1], torch.randn((N_RAGGED, 9), generator=gen, device="cuda"),
+              kern=pk, k64=_f64_kernel(gt, pk))
 
     # times at the path's shapes: CG's width r = 9 (alpha + 8 probes);
     # the library call is one torch.matmul on a prebuilt K, which leaves
@@ -1122,6 +1502,17 @@ def _matvec_checks(torch, gt, records):
                      reps=3)
     bound = bound_ms(flops=2.0 * N_IT * N_IT * 9, exps=float(N_IT) ** 2,
                      nbytes=4.0 * (N_IT + 2 * 9 * N_IT))
+    # every family's kernel at the path's width, beside SE + White's
+    family_ms = {}
+    for name, fk in _families(gt).items():
+        ms = time_ms(torch, lambda: cm.gram_matvec_cuda(fk, xc, v, nugget=nug),
+                     reps=10)
+        fb = bound_ms(flops=2.0 * N_IT * N_IT * 9,
+                      exps=float(SFU_PER_ENTRY[name]) * N_IT ** 2,
+                      nbytes=4.0 * (N_IT + 2 * 9 * N_IT))
+        family_ms[name] = {"ms": ms, "bound_ms": fb[0], "bound_by": fb[1]}
+        print(f"gram_matvec {name} n={N_IT} r=9: {ms:.3f} ms (bound {fb[0]:.3f}"
+              f" ms, {fb[1]})", flush=True)
     print(f"gram_matvec n={N_IT} d=1: kernel r=1 {times[1]:.3f} ms, r=8 "
           f"{times[8]:.3f} ms, r=9 {times[9]:.3f} ms; plain (r=9, float32) "
           f"{plain:.3f} ms; torch.matmul on a prebuilt K (r=9, Gram build "
@@ -1145,7 +1536,8 @@ def _matvec_checks(torch, gt, records):
     records["cross_matvec"] = _record(
         "cross_matvec", "gpx_torch/csrc/matvec.cu", "gpx/ops/pallas_matvec.py:175",
         errs["cross_matvec"], ms, plain, bound, lib)
-    return {"gram_matvec_ms": times, "gram_matvec_ms_n131072_r9": big_ms}
+    return {"gram_matvec_ms": times, "gram_matvec_ms_n131072_r9": big_ms,
+            "gram_matvec_family_ms": family_ms}
 
 
 def _dense_gram64(torch, kernel, x, nugget, block=4096):
@@ -1161,13 +1553,14 @@ def _dense_gram64(torch, kernel, x, nugget, block=4096):
     return k
 
 
-def _dense_logml64(torch, gt, x, y, nugget):
+def _dense_logml64(torch, gt, x, y, nugget, k64=None):
     """The dense float64 logML, its kernel gradient (sum_ij W_ij dK_ij /
     dtheta with W = (alpha alpha^T - K^-1) / 2, by autograd of the Gram's
-    row blocks) and alpha = K^-1 y; K takes 8 GiB at N = 32,768."""
+    row blocks) and alpha = K^-1 y; K takes 8 GiB at N = 32,768. The
+    kernel is the example's SE + White unless ``k64`` is given."""
     from gpx_torch.ops.cuda_gram import gram_reference
 
-    k64 = _iter_kernel(gt, torch.float64)
+    k64 = _iter_kernel(gt, torch.float64) if k64 is None else k64
     x64, y64 = x.double(), y.double()
     n = x.shape[0]
     lmat = torch.linalg.cholesky(_dense_gram64(torch, k64, x64, nugget))
@@ -1202,7 +1595,7 @@ def _flat(gt, res):
     return [float(res.value)] + [float(t) for t in gt.params.leaves(res.grads.kernel)]
 
 
-def _hold_logml(label, got, f64, dense):
+def _hold_logml(label, got, f64, dense, names=("value", "h", "sigma", "white")):
     """One seed's float32 result against the dense float64 logML and
     against the same estimator in float64 on the same noise.
 
@@ -1221,8 +1614,9 @@ def _hold_logml(label, got, f64, dense):
     as phase 3 holds the exact path: value 1e-4 relative; h 0.5 absolute;
     sigma 1e-2 and White 1e-3 relative (the probe solves stop at an
     absolute cg_tol, 1e-4 against the probes' norm of ~180), each relative
-    to the larger of the float64 estimate and the dense value."""
-    names = ("value", "h", "sigma", "white")
+    to the larger of the float64 estimate and the dense value. ``names``
+    label the value, the amplitude, the lengthscale and White, in that
+    order (Matern's sigma and l hold as SE's h and sigma)."""
     worst = {}
     for i, nm in enumerate(names):
         g, w, d = got[i], f64[i], dense[i]
@@ -1233,8 +1627,7 @@ def _hold_logml(label, got, f64, dense):
             limit, why = 2.0 * e64, "2 x the float64 estimator's error (variance at 8 probes)"
         same = abs(g - w)
         mag = max(abs(w), abs(d))  # a noisy estimate may sit near zero
-        same_limit = {"value": 1e-4 * mag, "h": 0.5, "sigma": 1e-2 * mag,
-                      "white": 1e-3 * mag}[nm]
+        same_limit = (1e-4 * mag, 0.5, 1e-2 * mag, 1e-3 * mag)[i]
         print(f"{label} {nm}: f32 {g:.8e} f64-estimator {w:.8e} dense-f64 {d:.8e}"
               f" | f32-dense {e32:.3e} (limit {limit:.3e}, {why}); f64-dense "
               f"{e64:.3e}; f32-f64 same noise {same:.3e} (limit {same_limit:.3e})",
@@ -1350,6 +1743,11 @@ def phase_iterative(torch, gt, records):
     out["fit_err"] = _hold_fit(torch, gt, gi, params, x, y, xs, post, fit_opts)
     torch.cuda.empty_cache()
 
+    # -- Matern 3/2 + White: one counted eval (seed 0) against the dense
+    # float64 logML and the same estimator in float64; ms/eval ----------
+    out["matern32"] = _iter_matern_run(torch, gt, gi, x, y, nug)
+    torch.cuda.empty_cache()
+
     # -- stand-alone stages at N = 32,768, each counted ------------------
     out["stages_ms"] = _iter_stages(torch, gt, gi, cm, params, x, y, xs, pn, iters,
                                     cg_ms, gram_matvec, cross_matvec)
@@ -1368,6 +1766,41 @@ def phase_iterative(torch, gt, records):
     torch.cuda.empty_cache()
     out["scale"] = _scale_run(torch, gt, gi)
     return out
+
+
+def _iter_matern_run(torch, gt, gi, x, y, nug):
+    """logml_value_and_grad_iterative at N = 32,768 with Matern(2, 3/2, 3)
+    + White(0.5) on the example's data: the CUDA matvec by its launches,
+    _hold_logml for seed 0, and ms/eval."""
+    params = gt.Parameters(mean=gt.zero(), kernel=_iter_matern(gt))
+    res, counts = _count(torch, lambda: gi.logml_value_and_grad_iterative(
+        params, x, y, torch.Generator(device="cuda").manual_seed(0), **ITER))
+    print(f"iterative logML matern32+white n={N_IT} launches: "
+          f"{json.dumps(counts)}; CG {res.cg_iters} iterations, converged "
+          f"{res.cg_converged}", flush=True)
+    check(counts["gram_matvec"] > 0 and counts["torch_route_calls"] == 2,
+          "the Matern logML did not run on the CUDA matvec")
+    check(res.cg_converged, "Matern logML: CG did not converge")
+    dense_v, dense_g, _ = _dense_logml64(torch, gt, x, y, nug,
+                                         _iter_matern(gt, torch.float64))
+    torch.cuda.empty_cache()
+    pn, sn = _iter_noise(torch, gi, 0, N_IT, ITER["n_probes"])
+    p64 = gt.Parameters(mean=gt.zero(), kernel=_iter_matern(gt, torch.float64))
+    r64 = gi._logml_value_and_grad_iterative(
+        p64, x.double(), y.double(), probe_noise=pn.double(),
+        slq_noise=sn.double(), lanczos_iters=ITER["lanczos_iters"],
+        cg_tol=ITER["cg_tol"], precond_rank=ITER["precond_rank"])
+    worst = _hold_logml(f"logml matern32+white n={N_IT} seed 0", _flat(gt, res),
+                        _flat(gt, r64), [dense_v] + dense_g,
+                        names=("value", "sigma", "l", "white"))
+    key = torch.Generator(device="cuda").manual_seed(0)
+    eval_ms = _median_ms(torch, lambda: gi.logml_value_and_grad_iterative(
+        params, x, y, key, **ITER))
+    print(f"iterative matern32+white n={N_IT}: value {float(res.value):.8e}; "
+          f"logML ms/eval {eval_ms[0]:.2f} {eval_ms[1]} (median of 5, CUDA "
+          f"events)", flush=True)
+    return {"value": float(res.value), "launches": counts, "worst": worst,
+            "ms_per_eval": eval_ms}
 
 
 def _hold_fit(torch, gt, gi, params, x, y, xs, post, fit_opts):
@@ -1629,10 +2062,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     card = phase_setup()
+    if "--bench-only" in sys.argv[1:]:
+        records = {name: {} for name in _counters()}
+        summary = phase_bench(torch, gt, records)
+        summary["hybrid"] = phase_hybrid(torch, gt, records)
+        print(f"ms/eval at N = {N_BENCH}: exact {summary['ms_per_eval']:.2f}  "
+              f"hybrid {summary['hybrid']['ms_per_eval']:.2f}", flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s (bench only)", flush=True)
+        return 0
     records, chol = phase_kernels(torch, gt)
+    families = phase_families(torch, gt)
     summary = phase_bench(torch, gt, records)
     summary.update(chol)
+    summary["families"] = families
     summary["hybrid"] = phase_hybrid(torch, gt, records)
+    summary["families_e2e"] = phase_families_e2e(torch, gt)
     print(f"ms/eval at N = {N_BENCH}: exact {summary['ms_per_eval']:.2f}  "
           f"hybrid {summary['hybrid']['ms_per_eval']:.2f}", flush=True)
     if "--no-iterative" in sys.argv[1:]:

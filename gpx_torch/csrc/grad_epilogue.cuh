@@ -5,10 +5,15 @@
 // For one lower-triangle 64 x 64 tile (i >= j) with `kinv` the (exact or
 // estimated) K^-1 tile in the tile core's register layout, the epilogue
 // recomputes r2 from x, forms W = 0.5 (alpha alpha^T - K^-1) with weights 2
-// below the diagonal, 1 on it and 0 above, and contracts it with dk/dtheta
-// of every term-table hyperparameter (terms.cuh). It also forms the
-// logdet-correction traces tr(W_hat K), with K evaluated without the
-// nugget, and tr(W_hat). Thread 0 writes the block's n_params + 2 partials.
+// below the diagonal, 1 on it and 0 above, and contracts it with dK/dtheta
+// of every term-table hyperparameter (terms.cuh; a factor of a product
+// times the product of the other factors, formed from them and not by
+// division, since a White factor is exactly 0 off the diagonal). It also
+// forms the logdet-correction traces tr(W_hat K), with K evaluated without
+// the nugget, and tr(W_hat). With ARD, x holds the scaled coordinates
+// u = x / ell and D more outputs follow: sdot_e = sum W dK/dr2 (u_ie -
+// u_je)^2, from which the caller forms the lengthscale gradients. Thread 0
+// writes the block's n_params + 2 (+ D) partials.
 #pragma once
 
 #include "terms.cuh"
@@ -29,15 +34,102 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;  // valid in thread 0
 }
 
+// oth *= k_u(r2) over row R of the thread's 4 x 4 entries
+template <int R>
+struct RowFactor {
+  const float* p;
+  int aux;
+  const float (&r2)[4][4];
+  float (&oth)[4];
+  template <class Fam>
+  __device__ __forceinline__ void operator()(Fam) const {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) oth[c] *= Fam::value(p, aux, r2[R][c]);
+  }
+};
+
+// One entry of one term's contractions, `o` the product of the term's
+// other factors: s[q] += W dK/dtheta_q (dK/dtheta_q = o dk_t/dtheta_q),
+// *wkp += W o dk_t/dr2 (ARD; the entry's slot of shared memory), and at the
+// product's first factor tkw += W_hat K's share, wk k_t o
+template <class Fam, bool ARD>
+__device__ __forceinline__ void entry_grads(const float* p, int aux,
+                                            bool first, float r2, float wr,
+                                            float wk, float o, float (&s)[3],
+                                            float* wkp, float& tkw) {
+  float v, g[3], kp;
+  Fam::grads(p, aux, r2, v, g, kp);
+  const float w = wr * o;
+  s[0] = fmaf(w, g[0], s[0]);
+  s[1] = fmaf(w, g[1], s[1]);
+  s[2] = fmaf(w, g[2], s[2]);
+  if (ARD) *wkp = fmaf(w, kp, *wkp);
+  if (first) tkw = fmaf(wk, v * o, tkw);
+}
+
+// entry (r, c)'s slot of the ARD sums W dK/dr2: 16 per thread, at stride
+// THREADS from the thread's own
+__device__ __forceinline__ float* wkp_slot(float* wkp, int r, int c) {
+  return wkp + (4 * r + c) * THREADS;
+}
+
+// Term t's contractions over row R of the thread's entries, `oth` the
+// row's product of t's other factors
+template <bool ARD, int R>
+struct FactorGrads {
+  const float* p;
+  int aux;
+  bool first;
+  const float (&r2)[4][4];
+  const float (&wr)[4][4];
+  const float (&wk)[4][4];
+  const float (&oth)[4];
+  float (&s)[3];
+  float* wkp;
+  float& tkw;
+  template <class Fam>
+  __device__ __forceinline__ void operator()(Fam) const {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      entry_grads<Fam, ARD>(p, aux, first, r2[R][c], wr[R][c], wk[R][c],
+                            oth[c], s, wkp_slot(wkp, R, c), tkw);
+  }
+};
+
+// Term t of the product of terms first .. end - 1 (a lone term: first = t,
+// end = t + 1, o = 1), row by row from R: the other factors' product for
+// one row at a time (4 registers, not 16)
+template <bool ARD, int R = 0>
+__device__ __forceinline__ void product_grads(
+    const TermSmem& ts, int t, int first, int end, const float (&r2)[4][4],
+    const float (&wr)[4][4], const float (&wk)[4][4], float (&s)[3],
+    float* wkp, float& tkw) {
+  if constexpr (R < 4) {
+    float oth[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    for (int u = first; u < end; ++u)
+      if (u != t)
+        with_family(ts.type[u],
+                    RowFactor<R>{&ts.par[ts.off[u]], ts.aux[u], r2, oth});
+    with_family(ts.type[t], FactorGrads<ARD, R>{&ts.par[ts.off[t]], ts.aux[t],
+                                                t == first, r2, wr, wk, oth,
+                                                s, wkp, tkw});
+    product_grads<ARD, R + 1>(ts, t, first, end, r2, wr, wk, s, wkp, tkw);
+  }
+}
+
 // `red` holds THREADS / 32 floats of shared memory; `part` the block's row
-// of n_params + 2 partials
+// of n_params + 2 (+ d with ARD) partials; with ARD, `wkp` 16 THREADS
+// floats of shared memory (the per-entry sums W dK/dr2 across terms: in
+// registers they would push the probe kernel past its 128)
+template <bool ARD>
 __device__ __forceinline__ void grad_epilogue(
     const float (&kinv)[4][4], int i0, int j0, const float* __restrict__ x,
     int d, const float* __restrict__ alpha, const TermSmem& ts, int n_terms,
-    int n_params, float* red, float* __restrict__ part) {
+    int n_params, float* red, float* wkp, float* __restrict__ part) {
   const int tx = tile_tx(), ty = tile_ty();
-  float r2[4][4], wr[4][4], wk[4][4], kval[4][4];
-  float trw = 0.0f;
+  float r2[4][4], wr[4][4], wk[4][4];
+  if (ARD) wkp += threadIdx.x;
+  float trw = 0.0f, tkw = 0.0f;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = i0 + ty + 16 * r;
@@ -54,42 +146,44 @@ __device__ __forceinline__ void grad_epilogue(
       r2[r][c] = diag ? 0.0f : q;
       wr[r][c] = 0.5f * (alpha[i] * alpha[j] - kinv[r][c]) * weight;
       wk[r][c] = weight * kinv[r][c];
-      kval[r][c] = 0.0f;
+      if (ARD) *wkp_slot(wkp, r, c) = 0.0f;
       if (diag) trw += kinv[r][c];
     }
   }
 
   for (int t = 0; t < n_terms; ++t) {
-    const int type = ts.type[t];
-    const float* p = &ts.par[ts.off[t]];
-    float s0 = 0.0f, s1 = 0.0f;
+    const int first = ts.first[t], end = ts.end[t];
+    float s[3] = {0.0f, 0.0f, 0.0f};
+    product_grads<ARD>(ts, t, first, end, r2, wr, wk, s, wkp, tkw);
+    const int arity = term_arity(ts.type[t]);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float g0, g1;
-        term_grads(type, p, r2[r][c], g0, g1);
-        s0 = fmaf(wr[r][c], g0, s0);
-        s1 = fmaf(wr[r][c], g1, s1);
-        kval[r][c] += term_value(type, p, r2[r][c]);
-      }
-    s0 = block_sum(s0, red);
-    if (threadIdx.x == 0) part[ts.off[t]] = s0;
-    if (term_arity(type) == 2) {
-      s1 = block_sum(s1, red);
-      if (threadIdx.x == 0) part[ts.off[t] + 1] = s1;
+    for (int q = 0; q < 3; ++q) {
+      if (q == arity) break;  // uniform across the block
+      const float sum = block_sum(s[q], red);
+      if (threadIdx.x == 0) part[ts.off[t] + q] = sum;
     }
   }
-  float tkw = 0.0f;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) tkw = fmaf(wk[r][c], kval[r][c], tkw);
   tkw = block_sum(tkw, red);
   trw = block_sum(trw, red);
   if (threadIdx.x == 0) {
     part[n_params] = tkw;
     part[n_params + 1] = trw;
+  }
+  if (!ARD) return;
+  // the ARD leg: one block sum per dimension
+  for (int e = 0; e < d; ++e) {
+    float se = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float xi = x[(int64_t)(i0 + ty + 16 * r) * d + e];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float diff = xi - x[(int64_t)(j0 + tx + 16 * c) * d + e];
+        se = fmaf(*wkp_slot(wkp, r, c) * diff, diff, se);
+      }
+    }
+    se = block_sum(se, red);
+    if (threadIdx.x == 0) part[n_params + 2 + e] = se;
   }
 }
 

@@ -12,7 +12,9 @@
 // of 8 dimensions, so any D works. Distances are broadcast differences at
 // every D (exact at coincident points, so White's r2 == 0 fires), the
 // caller centres x, and the symmetric diagonal is forced to r2 = 0. The
-// kernel is read from the term table (terms.cuh).
+// kernel is read from the term table (terms.cuh): a sum of products of
+// SE, White, Matern (half-integer nu), RQ and Periodic leaves, each family
+// evaluated over the thread's four entries under one switch.
 #include <stdint.h>
 
 #include "terms.cuh"
@@ -56,17 +58,17 @@ gram_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
     __syncthreads();
   }
   const int j = j0 + tx;
+  float k[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (symmetric && i0 + ty + 8 * r == j) r2[r] = 0.0f;
+  kernel_values(ts, n_terms, r2, k);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = i0 + ty + 8 * r;
     if (i >= n || j >= m) continue;
-    const bool diag = symmetric && i == j;
-    const float q = diag ? 0.0f : r2[r];
-    float k = 0.0f;
-    for (int t = 0; t < n_terms; ++t)
-      k += term_value(ts.type[t], &ts.par[ts.off[t]], q);
-    if (diag) k += nugget;
-    out[(int64_t)i * ldo + j] = k;
+    if (symmetric && i == j) k[r] += nugget;
+    out[(int64_t)i * ldo + j] = k[r];
   }
 }
 
@@ -76,7 +78,8 @@ int gpx_gram(const float* x1, const float* x2, int n, int m, int d,
              const int* table, int n_terms, const float* params, int n_params,
              float nugget, int symmetric, float* out, int64_t ldo,
              void* stream) {
-  if (n_terms < 1 || n_terms > GPX_MAX_TERMS || n_params > 2 * GPX_MAX_TERMS)
+  if (n_terms < 1 || n_terms > GPX_MAX_TERMS ||
+      n_params > GPX_TERM_PARAMS * GPX_MAX_TERMS)
     return (int)cudaErrorInvalidValue;
   dim3 grid((m + GT - 1) / GT, (n + GT - 1) / GT);
   dim3 block(GT, 8);

@@ -1,14 +1,15 @@
 // Fused logML gradient for Hopper (sm_90a), 3xTF32 on the tensor cores.
 //
 // Replaces the TPU kernel gpx/ops/pallas_logml_grad.py::logml_kernel_grads
-// (_body) with with_correction=True, non-ARD. For every lower-triangle
+// (_body) with with_correction=True, with and without ard. For every
+// lower-triangle
 // 128 x 128 tile (i >= j) of W = 0.5 (alpha alpha^T - K^-1):
 //   K^-1 tile = sum_{k >= i} Li[k, i-tile]^T Li[k, j-tile]   (N^3/6 MACs)
 // then, for each of its 64 x 64 quadrants on or below the diagonal and
 // inside n, the shared epilogue (grad_epilogue.cuh): W, its contraction
-// with dk/dtheta of every term-table hyperparameter (terms.cuh: explicit
-// device functions, no autodiff), and the logdet-correction traces
-// tr(W_hat K) and tr(W_hat).
+// with dK/dtheta of every term-table hyperparameter (terms.cuh: explicit
+// device functions, no autodiff), the logdet-correction traces
+// tr(W_hat K) and tr(W_hat), and with ard the per-dimension sums sdot.
 //
 // The TPU grid ran in order and added into SMEM scalars across steps. A
 // CUDA grid runs in parallel, so each quadrant writes one partial per
@@ -40,10 +41,14 @@
 //   triangular). The grid runs the tile rows in order, so the longest
 //   k-ranges start first. Where n = 64 (mod 128) the last tile row's lower
 //   half lies past n: its loads read zeros and its quadrants are skipped.
-// - The finished tile is staged through the ring's shared memory into the
-//   epilogue's 4 x 4 thread layout, so logml_probe_grad.cu's epilogue and
-//   the partials buffer stay as they were; neither K^-1 nor W reaches
-//   device memory.
+// - The finished tile is staged through the ring's shared memory, and each
+//   64 x 64 quadrant's epilogue (a call, not inlined) reads it in its 4 x 4
+//   thread layout, so logml_probe_grad.cu's epilogue and the partials
+//   buffer are shared; neither K^-1 nor W reaches device memory. With ard
+//   (a template flag) the epilogue adds the D sums sdot.
+// - The k loop runs at the 255-register cap: no instance spills (-Xptxas
+//   -v), which the non-inlined epilogue and the tiles' own base pointers
+//   keep so.
 #include "grad_epilogue.cuh"
 #include "mma_tf32.cuh"
 
@@ -55,14 +60,36 @@ constexpr int KTS = T::BN + 16;     // row stride of the staged K^-1 tile
 static_assert(T::THREADS == gpx::THREADS, "the epilogue's thread count");
 static_assert(T::BM == 2 * QUAD && T::BN == 2 * QUAD, "2 x 2 quadrants");
 static_assert(T::BM * KTS * 4 <= T::SMEM_BYTES, "the staged tile");
+// the ARD sums' scratch follows the staged tile in the ring
+constexpr int WKP_OFF = T::BM * KTS;
+static_assert((WKP_OFF + 16 * T::THREADS) * 4 <= T::SMEM_BYTES, "ARD sums");
 
-template <bool VEC>
+// One 64 x 64 quadrant's epilogue, its K^-1 tile read from the staged
+// tile `kq` (row stride KTS). Not inlined: the mainloop runs at the
+// 255-register cap, and an inlined epilogue changes how ptxas allocates it
+// (a spill inside the k loop); as a call, its registers are its own.
+template <bool ARD>
+__device__ __noinline__ void quadrant_epilogue(
+    const float* kq, int i0, int j0, const float* __restrict__ x, int d,
+    const float* __restrict__ alpha, const gpx::TermSmem& ts, int n_terms,
+    int n_params, float* red, float* wkp, float* __restrict__ part) {
+  const int tx = gpx::tile_tx(), ty = gpx::tile_ty();
+  float kinv[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) kinv[r][c] = kq[(ty + 16 * r) * KTS + tx + 16 * c];
+  gpx::grad_epilogue<ARD>(kinv, i0, j0, x, d, alpha, ts, n_terms, n_params,
+                          red, wkp, part);
+}
+
+template <bool VEC, bool ARD>
 __global__ void __launch_bounds__(T::THREADS, 1)
 logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
                   const float* __restrict__ x, int d,
                   const float* __restrict__ alpha, int n,
                   const int* __restrict__ table, int n_terms,
-                  const float* __restrict__ params, int n_params,
+                  const float* __restrict__ params, int n_params, int n_out,
                   float* __restrict__ partials) {
   extern __shared__ __align__(16) float smem[];
   __shared__ gpx::TermSmem ts;
@@ -72,11 +99,15 @@ logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
   int bi, bj;
   gpx::lower_tile(blockIdx.x, bi, bj);
   const int i0 = bi * T::BM, j0 = bj * T::BN;
+  // the tiles' columns from their own base pointers (one register fewer in
+  // the k loop than li with i0 and j0: at the cap, that decides a spill)
+  const float* li_i = li + i0;
+  const float* li_j = li + j0;
   auto load = [&](int stage, int k0) {
     float* as = smem + stage * T::STAGE_FLOATS;
     float* bs = as + T::A_FLOATS;
-    gpx::tf32::load_nmajor<T, VEC>(as, li, ldli, k0, n, i0, n);
-    gpx::tf32::load_nmajor<T, VEC>(bs, li, ldli, k0, n, j0, n);
+    gpx::tf32::load_nmajor<T, VEC>(as, li_i, ldli, k0, n, 0, n - i0);
+    gpx::tf32::load_nmajor<T, VEC>(bs, li_j, ldli, k0, n, 0, n - j0);
   };
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -105,34 +136,28 @@ logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
 
   // the quadrants on or below the diagonal and inside n, each with its own
   // row of partials (the 64-wide tile order of lower_tile)
-  const int nq = n / QUAD, tx = gpx::tile_tx(), ty = gpx::tile_ty();
+  const int nq = n / QUAD;
   for (int qi = 0; qi < 2; ++qi) {
     const int qr = 2 * bi + qi;
     if (qr >= nq) break;
     for (int qj = 0; qj < 2; ++qj) {
       const int qc = 2 * bj + qj;
       if (qc > qr) break;
-      float kinv[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          kinv[r][c] = kt[(qi * QUAD + ty + 16 * r) * KTS + qj * QUAD + tx +
-                          16 * c];
       const int64_t tile = (int64_t)qr * (qr + 1) / 2 + qc;
-      gpx::grad_epilogue(kinv, qr * QUAD, qc * QUAD, x, d, alpha, ts, n_terms,
-                         n_params, red, partials + tile * (n_params + 2));
+      quadrant_epilogue<ARD>(kt + qi * QUAD * KTS + qj * QUAD, qr * QUAD,
+                             qc * QUAD, x, d, alpha, ts, n_terms, n_params,
+                             red, smem + WKP_OFF, partials + tile * n_out);
     }
   }
 }
 
-template <bool VEC>
+template <bool VEC, bool ARD>
 int launch(const float* li, int64_t ldli, const float* x, int d,
            const float* alpha, int n, const int* table, int n_terms,
-           const float* params, int n_params, float* partials,
+           const float* params, int n_params, int n_out, float* partials,
            cudaStream_t s) {
   static bool attr = false;
-  auto kern = logml_grad_kernel<VEC>;
+  auto kern = logml_grad_kernel<VEC, ARD>;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
@@ -141,7 +166,8 @@ int launch(const float* li, int64_t ldli, const float* x, int d,
   }
   const int nb = (n + T::BM - 1) / T::BM;
   kern<<<nb * (nb + 1) / 2, T::THREADS, T::SMEM_BYTES, s>>>(
-      li, ldli, x, d, alpha, n, table, n_terms, params, n_params, partials);
+      li, ldli, x, d, alpha, n, table, n_terms, params, n_params, n_out,
+      partials);
   return (int)cudaGetLastError();
 }
 
@@ -149,26 +175,27 @@ int launch(const float* li, int64_t ldli, const float* x, int d,
 
 extern "C" {
 
-// n must be a multiple of 64; partials holds (n/64)(n/64 + 1)/2 x
-// (n_params + 2) floats, out n_params + 2: the gradients in params order,
-// then tr(W_hat K) and tr(W_hat).
+// n must be a multiple of 64; n_out = n_params + 2 (+ d with ard), at most
+// 128; partials holds (n/64)(n/64 + 1)/2 x n_out floats, out n_out: the
+// gradients in params order, tr(W_hat K), tr(W_hat), then with ard sdot.
 int gpx_logml_grad(const float* li, int64_t ldli, const float* x, int d,
                    const float* alpha, int n, const int* table, int n_terms,
-                   const float* params, int n_params, float* partials,
-                   float* out, void* stream) {
+                   const float* params, int n_params, int ard,
+                   float* partials, float* out, void* stream) {
+  const int n_out = n_params + 2 + (ard ? d : 0);
   if (n % QUAD || n_terms < 1 || n_terms > GPX_MAX_TERMS ||
-      n_params > 2 * GPX_MAX_TERMS)
+      n_params > GPX_TERM_PARAMS * GPX_MAX_TERMS || n_out > 128)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = gpx::tf32::aligned(li, ldli)
-      ? launch<true>(li, ldli, x, d, alpha, n, table, n_terms, params,
-                     n_params, partials, s)
-      : launch<false>(li, ldli, x, d, alpha, n, table, n_terms, params,
-                      n_params, partials, s);
+  const bool vec = gpx::tf32::aligned(li, ldli);
+  auto go = vec ? (ard ? &launch<true, true> : &launch<true, false>)
+                : (ard ? &launch<false, true> : &launch<false, false>);
+  const int err = go(li, ldli, x, d, alpha, n, table, n_terms, params,
+                     n_params, n_out, partials, s);
   if (err != cudaSuccess) return err;
   const int nq = n / QUAD;
-  gpx::reduce_partials_kernel<<<n_params + 2, 256, 0, s>>>(
-      partials, nq * (nq + 1) / 2, n_params + 2, out);
+  gpx::reduce_partials_kernel<<<n_out, 256, 0, s>>>(
+      partials, nq * (nq + 1) / 2, n_out, out);
   return (int)cudaGetLastError();
 }
 

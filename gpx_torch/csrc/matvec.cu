@@ -1,15 +1,17 @@
 // Matrix-free Gram products for Hopper (sm_90a), K never stored:
 //     gram_matvec:  out = (K(x, x) + nugget I) V
 //     cross_matvec: out = K(x1, x2) V
-// with K = k(r2) read from the term table (terms.cuh).
+// with K = k(r2) read from the term table (terms.cuh): a sum of products of
+// SE, White, Matern (half-integer nu), RQ and Periodic leaves.
 //
 // Replaces the TPU kernels gpx/ops/pallas_matvec.py::gram_matvec
 // (_matvec_kernel) and ::cross_matvec (_cross_kernel), which rebuild
 // (1024, 1024) Gram tiles in VMEM and multiply them into the right-hand
 // sides on the MXU at HIGHEST precision.
 //
-// Bound: operations. Each Gram entry costs its kernel algebra (one
-// exponential per SE term on the SFU, the distance, the term sum) and R
+// Bound: operations. Each Gram entry costs its kernel algebra (the
+// distance, a square root for Matern and Periodic, one exponential per
+// term and a logarithm per RQ term on the SFU, the sum of products) and R
 // FMAs, while the bytes moved are O(N (D + R)). At the iterative path's
 // widths (R <= 16) the algebra is most of the work.
 //
@@ -19,7 +21,9 @@
 // block walks its range of x2 in tiles of 32 points, staging the tile's
 // coordinates (8 dimensions per pass, so any D works) and its (32, RC)
 // slice of V in shared memory. Each thread forms its 32 entries k(r2) in
-// registers and FMAs them into RC float sums; each tile's sums are added
+// registers (the family switch once per term, outside the loop over the
+// 32 entries; a product's factors entry by entry through shared memory)
+// and FMAs them into RC float sums; each tile's sums are added
 // to double accumulators, as tile_core.cuh adds its k-slices (one running
 // float sum over all N columns would carry N-fold rounding). Distances
 // are broadcast differences at every D, exact at coincident points, so
@@ -45,8 +49,11 @@ constexpr int MV_DC = 8;       // coordinates staged per pass
 constexpr int MV_MAX_RC = 32;  // columns of V per block
 constexpr int MV_MIN_SPLIT = 256;  // fewest points of x2 per split
 
+// At least 3 blocks of 128 threads an SM (2 at RC = 32): ptxas's own
+// target, set by the shared staging, would cap the wide instances at 128
+// registers, where they spill
 template <int RC>
-__global__ void __launch_bounds__(MV_ROWS)
+__global__ void __launch_bounds__(MV_ROWS, RC >= 32 ? 2 : 3)
 matvec_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
               int n1, int n2, int d, const float* __restrict__ v, int64_t ldv,
               int r, const int* __restrict__ table, int n_terms,
@@ -54,6 +61,7 @@ matvec_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
               int symmetric, int split_cols, double* __restrict__ partials) {
   __shared__ float xs[MV_TC][MV_DC];
   __shared__ __align__(16) float vs[MV_TC][RC];
+  __shared__ float stage[2 * MV_TC][MV_ROWS];  // products, entry by entry
   __shared__ TermSmem ts;
   load_terms(table, n_terms, params, n_params, ts);
 
@@ -104,12 +112,7 @@ matvec_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
     float kv[MV_TC];
 #pragma unroll
     for (int c = 0; c < MV_TC; ++c) kv[c] = 0.0f;
-    for (int t = 0; t < n_terms; ++t) {
-      const int type = ts.type[t];
-      const float* p = &ts.par[ts.off[t]];
-#pragma unroll
-      for (int c = 0; c < MV_TC; ++c) kv[c] += term_value(type, p, r2[c]);
-    }
+    kernel_values<MV_TC, true>(ts, n_terms, r2, kv, &stage[0][tid], MV_ROWS);
     if (symmetric) {
 #pragma unroll
       for (int c = 0; c < MV_TC; ++c)
@@ -200,7 +203,7 @@ int gpx_matvec(const float* x1, const float* x2, int n1, int n2, int d,
                int symmetric, double* partials, float* out, int64_t ldo,
                void* stream) {
   if (n1 < 1 || n2 < 1 || r < 1 || d < 1 || n_terms < 1 ||
-      n_terms > GPX_MAX_TERMS || n_params > 2 * GPX_MAX_TERMS)
+      n_terms > GPX_MAX_TERMS || n_params > GPX_TERM_PARAMS * GPX_MAX_TERMS)
     return (int)cudaErrorInvalidValue;
   const Plan p = plan(n1, n2, r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -11,8 +11,11 @@ for the JAX kernels.
 a tile kernel; every kernel but general-``nu`` Matérn) and gates
 ``method="hybrid"`` as it does there. ``cuda_supported`` says whether the
 CUDA kernels' term table (:mod:`gpx_torch.ops.terms`) can evaluate the
-kernel: for now SE and White terms, alone or in a ``Sum``. Every other
-kernel runs the plain torch route.
+kernel: a leaf (SE, White, Matérn with half-integer ``nu``, RQ, Periodic),
+a ``Product`` of leaves, or a ``Sum`` of leaves and such ``Product``s, with
+at most :data:`MAX_TERMS` leaves. Every other kernel (general-``nu``
+Matérn, a ``Product`` that holds a ``Sum``, Linear) runs the plain torch
+route.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 
 from gpx_torch._device import as_tensor
 from gpx_torch._module import FieldModule
+
+MAX_TERMS = 8  # csrc/terms.cuh: GPX_MAX_TERMS
 
 
 def _safe_dist(r2):
@@ -148,6 +153,10 @@ class Matern(Kernel):
     def pallas_safe(self) -> bool:
         return self._half_integer_p is not None
 
+    @property
+    def cuda_supported(self) -> bool:
+        return self._half_integer_p is not None
+
 
 class White(Kernel):
     """``sigma`` where the distance is exactly zero, else 0 — for any zero
@@ -179,6 +188,10 @@ class RationalQuadratic(Kernel):
             -self.alpha
         )
 
+    @property
+    def cuda_supported(self) -> bool:
+        return True
+
 
 class Periodic(Kernel):
     """``k(d) = h * exp(-2 sin^2(pi d / period) / l^2)``."""
@@ -192,6 +205,10 @@ class Periodic(Kernel):
         d = _safe_dist(r2)
         s = torch.sin(math.pi * d / self.period)
         return self.h * torch.exp(-2.0 * (s * s) / (self.l * self.l))
+
+    @property
+    def cuda_supported(self) -> bool:
+        return True
 
 
 class Linear(Kernel):
@@ -266,11 +283,9 @@ class Sum(Kernel):
 
     @property
     def cuda_supported(self) -> bool:
-        # the term table holds a flat sum of leaf terms
-        return all(
-            not isinstance(k, (Sum, Product)) and k.cuda_supported
-            for k in self.kernels
-        )
+        # the term table holds a sum of leaves and products of leaves
+        return _table_fits(self) and all(
+            k.cuda_supported and not isinstance(k, Sum) for k in self.kernels)
 
 
 class Product(Kernel):
@@ -298,6 +313,20 @@ class Product(Kernel):
     @property
     def pallas_safe(self) -> bool:
         return all(k.pallas_safe for k in self.kernels)
+
+    @property
+    def cuda_supported(self) -> bool:
+        # a product of leaves: one group of the term table
+        return _table_fits(self) and all(
+            k.cuda_supported and not isinstance(k, (Sum, Product))
+            for k in self.kernels)
+
+
+def _table_fits(kernel) -> bool:
+    """At most :data:`MAX_TERMS` leaves in the sum of products."""
+    parts = kernel.kernels if isinstance(kernel, Sum) else (kernel,)
+    return sum(len(k.kernels) if isinstance(k, Product) else 1
+               for k in parts) <= MAX_TERMS
 
 
 def has_white(kernel) -> bool:

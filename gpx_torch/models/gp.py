@@ -4,10 +4,13 @@ main path of ``gpx/models/gp.py``.
 ``logml_value_and_grad(params, x, y)`` with ``method="analytic"`` is the
 path every user of the library reaches (samplers call it once per leapfrog
 step, type-II MLE once per step). On the card, in float32, for a kernel the
-CUDA device functions support and ``n >= FUSED_MIN_N``, it runs the fused
-route: the Gram kernel, ``chol_inv`` over the leaf and product kernels, and
-the fused gradient kernel. Everything else takes the non-fused route on
-``torch.linalg``.
+CUDA device functions support (or one top-level ``Ard`` over such a
+kernel) and ``n >= FUSED_MIN_N``, it runs the fused route: the Gram
+kernel, ``chol_inv`` over the leaf and product kernels, and the fused
+gradient kernel. Everything else takes the non-fused route on
+``torch.linalg``. A Gram that is not positive definite gives NaN on every
+route, as in the JAX package, and ``-inf`` from
+``log_marginal_likelihood(safe=True)``.
 
 ``method="hybrid"`` factors with the trailing-spine M21 blocks skipped,
 solves alpha and a Rademacher probe block through that factor, and
@@ -50,16 +53,29 @@ _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def log_marginal_likelihood(params: Parameters, x, y, *,
-                            nugget: float = LOGML_NUGGET):
+                            nugget: float = LOGML_NUGGET, safe: bool = False):
     """Exact GP marginal log-likelihood: Gram + nugget, one Cholesky, one
-    forward solve."""
+    forward solve. NaN where the Gram is not positive definite;
+    ``safe=True`` escalates the nugget on a failed factor
+    (:func:`gpx_torch.ops.safe_chol.safe_cholesky`) and returns ``-inf``
+    when even the largest fails, so that a sampler rejects the move."""
     full_fp32()
     x, y = check_xy(x, y)
     n = x.shape[0]
-    l = cholesky(gram(params.kernel, x, nugget=nugget))
+    kxx = gram(params.kernel, x, nugget=nugget)
+    if safe:
+        from gpx_torch.ops.safe_chol import safe_cholesky
+
+        result = safe_cholesky(kxx)
+        l = result.chol
+    else:
+        l = cholesky(kxx)
     u = forward_solve(l, y - params.mean(x))
     half_logdet = torch.sum(torch.log(torch.diagonal(l)))
-    return -0.5 * (u @ u) - half_logdet - n * _HALF_LOG_2PI
+    value = -0.5 * (u @ u) - half_logdet - n * _HALF_LOG_2PI
+    if safe:
+        value = torch.where(result.failed, float("-inf"), value)
+    return value
 
 
 def _grads_or_zeros(outputs, inputs, grad_outputs=None):
@@ -83,7 +99,7 @@ def logml_value_and_grad(params: Parameters, x, y, *,
     ``method="analytic"`` uses the trace identity ``d logML/d theta =
     0.5 (alpha^T G alpha - tr(K^-1 G))``, ``G = dK/d theta`` (fused route
     on the card, see :func:`_fused_gate`); ``method="autodiff"`` runs
-    torch autograd through ``torch.linalg.cholesky``.
+    torch autograd through the Cholesky factor.
 
     ``method="hybrid"`` estimates the trace term from ``probes`` Rademacher
     probes drawn from ``probe_key`` (a ``torch.Generator`` on ``x``'s
@@ -115,11 +131,22 @@ def logml_value_and_grad(params: Parameters, x, y, *,
     return _logml_value_and_grad_analytic(params, x, y, nugget)
 
 
+def _split_ard(kernel):
+    """``(base, ell)`` for one top-level :class:`Ard` over a kernel that is
+    not itself an ``Ard``; else ``(kernel, None)``."""
+    if isinstance(kernel, Ard) and not isinstance(kernel.base, Ard):
+        return kernel.base, kernel.ell
+    return kernel, None
+
+
 def _fused_gate(kernel, x) -> bool:
     """Whether the fused route applies: float32 on the card, ``n >=
-    FUSED_MIN_N``, and a kernel the CUDA device functions support. Any
-    such ``n`` qualifies; :func:`_fused_logml_core` pads it."""
-    return uses_cuda_kernel(kernel, x) and x.shape[0] >= FUSED_MIN_N
+    FUSED_MIN_N``, and a kernel the CUDA device functions support, after
+    one top-level ``Ard`` is unwrapped (ARD is the base kernel on scaled
+    coordinates). Any such ``n`` qualifies; :func:`_fused_logml_core` pads
+    it."""
+    return (uses_cuda_kernel(_split_ard(kernel)[0], x)
+            and x.shape[0] >= FUSED_MIN_N)
 
 
 def _pad_spd(k, pad: int):
@@ -140,7 +167,11 @@ def _fused_logml_core(kernel, x, r, k_val, nugget: float, *,
     with zeros and the coordinates with copies of ``x[0]``. The gradient
     contraction gets ``l_inv`` with its pad rows zeroed, so every pad entry
     meets an exactly-zero weight, and the logdet correction uses the real
-    ``n``. On CPU tensors every kernel call takes its plain version."""
+    ``n``. A top-level ``Ard`` contracts its base kernel on the scaled
+    coordinates ``x / ell`` and turns the per-dimension sums ``sdot`` into
+    the lengthscale gradients ``-2 sdot / ell``. On CPU tensors every
+    kernel call takes its plain version."""
+    base_kernel, ell = _split_ard(kernel)
     n = x.shape[0]
     pad = (-n) % math.lcm(TILE, base)
     if pad:
@@ -165,7 +196,12 @@ def _fused_logml_core(kernel, x, r, k_val, nugget: float, *,
     if pad:
         # zero the pad rows in place: l_inv is not read again after this
         l_inv[n:] = 0.0
-    d_kernel, (tkw, trw) = logml_kernel_grads(kernel, x_c, alpha, l_inv)
+    if ell is None:
+        d_kernel, (tkw, trw) = logml_kernel_grads(kernel, x_c, alpha, l_inv)
+    else:
+        d_base, (tkw, trw), sdot = logml_kernel_grads(
+            base_kernel, x_c / ell.to(x_c.dtype), alpha, l_inv, ard=True)
+        d_kernel = Ard(base=d_base, ell=-2.0 * sdot / ell.to(sdot.dtype))
 
     # first-order logdet correction with W_hat = l_inv^T l_inv:
     # logdet K = -2 sum log diag(l_inv) + (tr(W_hat K) - n) + O(||E||^2)
@@ -208,21 +244,14 @@ def _logml_value_and_grad_analytic(params: Parameters, x, y, nugget: float):
 
 
 def _hybrid_gate(kernel) -> None:
-    """Raise unless ``method="hybrid"`` takes ``kernel``: ``ValueError``
-    for a kernel that is not stationary and Pallas-safe (as the JAX
-    package), ``NotImplementedError`` for a top-level ``Ard``, which the
-    JAX package runs and the port does not yet."""
-    base = kernel
-    if isinstance(kernel, Ard) and not isinstance(kernel.base, Ard):
-        base = kernel.base
+    """Raise ``ValueError`` unless ``method="hybrid"`` takes ``kernel``: a
+    stationary, Pallas-safe kernel, or one top-level ``Ard`` over one (as
+    the JAX package)."""
+    base, _ = _split_ard(kernel)
     if isinstance(base, Ard) or not base.is_stationary or not base.pallas_safe:
         raise ValueError(
-            "method='hybrid' needs a stationary Pallas-safe kernel; use "
-            "method='analytic'")
-    if isinstance(kernel, Ard):
-        raise NotImplementedError(
-            "method='hybrid' with Ard is not ported yet (the sdot leg of the "
-            "gradient kernels)")
+            "method='hybrid' needs a stationary Pallas-safe kernel (a single "
+            "top-level Ard wrapper is supported); use method='analytic'")
 
 
 def _logml_value_and_grad_hybrid(params: Parameters, x, y, nugget: float, *,
@@ -240,16 +269,22 @@ def _logml_value_and_grad_hybrid(params: Parameters, x, y, nugget: float, *,
 
     ``n`` pads to a multiple of the tiles (:func:`_pad_spd`); ``z`` and
     alpha pad with zero rows, so every pad entry of the estimate is zero
-    and no pad correction is needed. ``base`` is the factor's leaf size.
-    On the card this runs in float32 and needs a kernel the CUDA term table
-    holds; on CPU tensors every kernel call takes its plain version."""
+    and no pad correction is needed. ``base`` is the factor's leaf size. A
+    top-level ``Ard`` runs as in :func:`_fused_logml_core`: the base
+    kernel on the scaled coordinates, deflated by the base's smooth part
+    there, and ``-2 sdot / ell`` (from the deflated estimate) for the
+    lengthscales. On the card this runs in float32 and needs a kernel the
+    CUDA term table holds; on CPU tensors every kernel call takes its plain
+    version."""
     x, y = check_xy(x, y)
     n = x.shape[0]
     kern = params.kernel
-    if x.device.type == "cuda" and not kern.cuda_supported:
+    base_kernel, ell = _split_ard(kern)
+    if x.device.type == "cuda" and not base_kernel.cuda_supported:
         raise NotImplementedError(
             f"method='hybrid' on the card needs the CUDA term table to hold "
-            f"{type(kern).__name__} (not ported yet)")
+            f"this {type(base_kernel).__name__} (a Product of a Sum is not "
+            f"ported yet)")
     ms = [t.detach().requires_grad_() for t in leaves(params.mean)]
     with torch.enable_grad():
         mean_val = unflatten(params.mean, ms)(x)
@@ -265,6 +300,8 @@ def _logml_value_and_grad_hybrid(params: Parameters, x, y, nugget: float, *,
         x_c = torch.cat([x, x[:1].expand(pad, x.shape[1])])
     else:
         k_mat, r_vec, x_c = k_val, r, x
+    if ell is not None:
+        x_c = x_c / ell.to(x_c.dtype)
 
     l, m = chol_inv(k_mat, base=base, spine=True)
 
@@ -277,13 +314,19 @@ def _logml_value_and_grad_hybrid(params: Parameters, x, y, nugget: float, *,
     quad = r_vec @ alpha
 
     z = F.pad(z.to(k_mat.dtype), (0, 0, 0, pad))
-    u_plain, aug = _hybrid_deflation(kern, x_c, z, solve, n, deflate)
-    d_kernel, (tkw, trw) = logml_probe_grads(kern, x_c, alpha, u_plain, z)
-    grads = leaves(d_kernel)
+    ard = ell is not None
+    u_plain, aug = _hybrid_deflation(base_kernel, x_c, z, solve, n, deflate)
+    d_base, (tkw, trw), *sdot = logml_probe_grads(base_kernel, x_c, alpha,
+                                                  u_plain, z, ard=ard)
+    grads = leaves(d_base)
     if aug is not None:
-        d_defl, _ = logml_probe_grads(kern, x_c, alpha, *aug)
+        d_defl, _, *sdot_defl = logml_probe_grads(base_kernel, x_c, alpha,
+                                                  *aug, ard=ard)
         grads = [a if plain else b for plain, a, b in
-                 zip(_hybrid_diag_mask(kern), grads, leaves(d_defl))]
+                 zip(_hybrid_diag_mask(base_kernel), grads, leaves(d_defl))]
+        sdot = sdot_defl  # the lengthscales are smooth: the deflated sums
+    if ard:
+        grads = grads + [-2.0 * sdot[0] / ell.to(sdot[0].dtype)]
     d_kernel = unflatten(kern, [g.to(leaf.dtype) for g, leaf in
                                 zip(grads, leaves(kern))])
     # the pad diagonal of m is exactly 1 (log 0) and the estimated traces

@@ -7,8 +7,13 @@ import torch
 
 
 def cholesky(a):
-    """Lower Cholesky factor of an SPD matrix."""
-    return torch.linalg.cholesky(a)
+    """Lower Cholesky factor of an SPD matrix; NaN throughout where the
+    factorization fails (a matrix that is not positive definite), as the
+    JAX package's returns, instead of raising. The NaN is added, so a
+    gradient through a failed factor is NaN too; no host sync."""
+    l, info = torch.linalg.cholesky_ex(a)
+    fail = torch.where(info != 0, float("nan"), 0.0).to(l.dtype)
+    return l + fail[..., None, None]
 
 
 def _solve(t, b, upper: bool):

@@ -28,6 +28,7 @@ import torch
 
 from gpx_torch._device import full_fp32
 from gpx_torch.ops import _build
+from gpx_torch.ops.chol import cholesky
 from gpx_torch.ops.cuda_trmm import syrk_lower, trmm
 
 LEAF = 128  # csrc/chol_inv_tile.cu: LEAF_MAX
@@ -36,9 +37,11 @@ _ARGS = [_build.P, _build.L, _build.P, _build.L, _build.P, _build.L,
 
 
 def chol_inv_tile_reference(a):
-    """``(L, L^-1)`` of the SPD matrix whose lower triangle is ``a``."""
+    """``(L, L^-1)`` of the SPD matrix whose lower triangle is ``a``; NaN
+    where it is not positive definite (the kernel's negative pivot gives
+    NaN too)."""
     sym = torch.tril(a) + torch.tril(a, -1).T
-    l = torch.linalg.cholesky(sym)
+    l = cholesky(sym)
     eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
     return l, torch.linalg.solve_triangular(l, eye, upper=False)
 

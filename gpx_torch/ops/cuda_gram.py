@@ -13,7 +13,7 @@ import torch
 from gpx_torch.kernels import has_white
 from gpx_torch.ops import _build
 from gpx_torch.ops.distance import as_locations, sq_distances
-from gpx_torch.ops.terms import table_tensors
+from gpx_torch.ops.terms import COLS, table_tensors
 from gpx_torch.params import leaves, unflatten
 
 _ARGS = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.P,
@@ -63,7 +63,7 @@ def _launch(kernel, x, x2, nugget):
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     fn = _build.function("gram", "gpx_gram", _ARGS)
     status = fn(_build.ptr(x1c), _build.ptr(x2c), n, m, d, _build.ptr(table),
-                table.shape[0] // 2, _build.ptr(params), params.shape[0],
+                table.shape[0] // COLS, _build.ptr(params), params.shape[0],
                 nugget, int(x2 is None), _build.ptr(out), out.stride(0),
                 _build.stream(x.device))
     _build.check(status, "gram kernel")

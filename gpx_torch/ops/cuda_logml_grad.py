@@ -2,13 +2,16 @@
 ``csrc/logml_probe_grad.cu``) and their plain versions.
 
 Ports of ``gpx/ops/pallas_logml_grad.py::logml_kernel_grads`` and
-``::logml_probe_grads`` with ``with_correction=True``, non-ARD:
+``::logml_probe_grads`` with ``with_correction=True``:
 ``d logML/d theta = sum_ij W_ij dK_ij/d theta`` with
 ``W = 0.5 (alpha alpha^T - K^-1)``, plus the two traces of the first-order
 logdet correction, without K^-1 or W reaching memory. The exact kernel
 forms ``K^-1 = L^-T L^-1``; the probe kernel (the hybrid path) its
 Hutchinson estimate ``(U Z^T + Z U^T) / (2 s)`` from a probe block ``Z``
-and ``U = K^-1 Z``.
+and ``U = K^-1 Z``. With ``ard=True`` the coordinates are the ARD-scaled
+``u = x / ell`` and both also return ``sdot_d = sum_ij W_ij K'(r2_ij)
+(u_id - u_jd)^2``, from which the caller forms the lengthscale gradients
+``-2 sdot / ell``.
 """
 
 from __future__ import annotations
@@ -18,38 +21,55 @@ import torch
 from gpx_torch.kernels import has_white
 from gpx_torch.ops import _build
 from gpx_torch.ops.distance import as_locations, sq_distances
-from gpx_torch.ops.terms import table_tensors
+from gpx_torch.ops.terms import COLS, table_tensors
 from gpx_torch.params import leaves, unflatten
 
 TILE = 64  # csrc/tile_core.cuh: BM
+MAX_OUTPUTS = 128  # the JAX package's (1, 128) output tile
 _ARGS = [_build.P, _build.L, _build.P, _build.I, _build.P, _build.I,
-         _build.P, _build.I, _build.P, _build.I, _build.P, _build.P, _build.P]
+         _build.P, _build.I, _build.P, _build.I, _build.I, _build.P, _build.P,
+         _build.P]
 _PROBE_ARGS = [_build.P, _build.L, _build.P, _build.L, _build.I, _build.P,
                _build.I, _build.P, _build.I, _build.P, _build.I, _build.P,
-               _build.I, _build.P, _build.P, _build.P]
+               _build.I, _build.I, _build.P, _build.P, _build.P]
 
 
-def _contract_reference(kernel, x, alpha, kinv):
+def _check_outputs(kernel, x, ard: bool) -> None:
+    n_out = len(leaves(kernel)) + 2 + (x.shape[1] if ard else 0)
+    if n_out > MAX_OUTPUTS:
+        raise ValueError(f"{n_out} fused-gradient outputs: more than "
+                         f"{MAX_OUTPUTS}")
+
+
+def _contract_reference(kernel, x, alpha, kinv, ard: bool):
     """Forms ``W`` from a (exact or estimated) ``K^-1`` and contracts it
-    with the kernel's tangents by autograd of ``evaluate_r2``."""
+    with the kernel's tangents by autograd of ``evaluate_r2``; with
+    ``ard``, also with ``dK/dr2`` and the squared coordinate differences."""
     x = as_locations(x)
     w = 0.5 * (torch.outer(alpha, alpha) - kinv)
     r2 = sq_distances(x, exact=x.shape[-1] > 8 and has_white(kernel))
     with torch.enable_grad():
         kl = [t.detach().requires_grad_() for t in leaves(kernel)]
+        r2 = r2.detach().requires_grad_(ard)
         kval = unflatten(kernel, kl).evaluate_r2(r2)
-        grads = torch.autograd.grad(torch.sum(w * kval), kl)
+        grads = torch.autograd.grad(torch.sum(w * kval),
+                                    kl + ([r2] if ard else []))
     kval = kval.detach()
-    d_kernel = unflatten(kernel, list(grads))
-    return d_kernel, (torch.sum(kinv * kval), torch.trace(kinv))
+    d_kernel = unflatten(kernel, list(grads[:len(kl)]))
+    out = (d_kernel, (torch.sum(kinv * kval), torch.trace(kinv)))
+    if ard:
+        wk = grads[-1]
+        out += (torch.stack([torch.sum(wk * (x[:, e, None] - x[None, :, e]) ** 2)
+                             for e in range(x.shape[1])]),)
+    return out
 
 
-def logml_kernel_grads_reference(kernel, x, alpha, l_inv):
+def logml_kernel_grads_reference(kernel, x, alpha, l_inv, *, ard: bool = False):
     """Plain version: forms ``K^-1`` and ``W`` explicitly."""
-    return _contract_reference(kernel, x, alpha, l_inv.T @ l_inv)
+    return _contract_reference(kernel, x, alpha, l_inv.T @ l_inv, ard)
 
 
-def _prepare(kernel, x, alpha, mats):
+def _prepare(kernel, x, alpha, mats, ard):
     """Checks of a CUDA launch; returns ``(centred x, table, params,
     partials, out)``."""
     if not kernel.cuda_supported:
@@ -62,7 +82,7 @@ def _prepare(kernel, x, alpha, mats):
         _build.require(t, name, ndim=nd, device=dev)
     xc = (x - x.mean(dim=0, keepdim=True)).contiguous()
     table, params = table_tensors(kernel, dev)
-    n_out = params.shape[0] + 2
+    n_out = params.shape[0] + 2 + (x.shape[1] if ard else 0)
     nb = n // TILE
     partials = torch.empty((nb * (nb + 1) // 2, n_out), dtype=torch.float32,
                            device=dev)
@@ -70,74 +90,81 @@ def _prepare(kernel, x, alpha, mats):
     return xc, table, params, partials, out
 
 
-def _unpack(kernel, out):
-    n_params = out.shape[0] - 2
+def _unpack(kernel, out, ard):
+    n_params = len(leaves(kernel))
     grads = [out[p].reshape(leaf.shape) for p, leaf in enumerate(leaves(kernel))]
-    return unflatten(kernel, grads), (out[n_params], out[n_params + 1])
+    res = (unflatten(kernel, grads), (out[n_params], out[n_params + 1]))
+    return res + (out[n_params + 2:],) if ard else res
 
 
-def logml_kernel_grads(kernel, x, alpha, l_inv):
+def logml_kernel_grads(kernel, x, alpha, l_inv, *, ard: bool = False):
     """``(d_kernel, (tkw, trw))``: the logML gradient for every kernel
     hyperparameter (a tree shaped like ``kernel``), ``tkw = tr(W_hat K)``
     with K taken without the nugget, and ``trw = tr(W_hat)``, where
-    ``W_hat = l_inv^T l_inv``. On the card ``n`` must be a multiple of
-    :data:`TILE`. On CPU tensors this is the plain version."""
+    ``W_hat = l_inv^T l_inv``; with ``ard=True`` (``x`` the ARD-scaled
+    coordinates) ``(d_kernel, (tkw, trw), sdot)``, ``sdot`` of shape
+    ``(D,)``. At most 128 outputs (hyperparameters + 2 + D). On the card
+    ``n`` must be a multiple of :data:`TILE`. On CPU tensors this is the
+    plain version."""
     x = as_locations(x)
     n = x.shape[0]
     if tuple(l_inv.shape) != (n, n) or tuple(alpha.shape) != (n,):
         raise ValueError(f"l_inv {tuple(l_inv.shape)} / alpha "
                          f"{tuple(alpha.shape)} for n = {n}")
+    _check_outputs(kernel, x, ard)
     if x.device.type == "cpu":
-        return logml_kernel_grads_reference(kernel, x, alpha, l_inv)
+        return logml_kernel_grads_reference(kernel, x, alpha, l_inv, ard=ard)
     xc, table, params, partials, out = _prepare(kernel, x, alpha,
-                                                [(l_inv, "l_inv", 2)])
+                                                [(l_inv, "l_inv", 2)], ard)
     fn = _build.function("logml_grad", "gpx_logml_grad", _ARGS)
     status = fn(_build.ptr(l_inv), l_inv.stride(0), _build.ptr(xc),
                 xc.shape[1], _build.ptr(alpha), n, _build.ptr(table),
-                table.shape[0] // 2, _build.ptr(params), params.shape[0],
-                _build.ptr(partials), _build.ptr(out), _build.stream(x.device))
+                table.shape[0] // COLS, _build.ptr(params), params.shape[0],
+                int(ard), _build.ptr(partials), _build.ptr(out),
+                _build.stream(x.device))
     _build.check(status, "logml_kernel_grads")
     logml_kernel_grads.launches += 1
-    return _unpack(kernel, out)
+    return _unpack(kernel, out, ard)
 
 
 logml_kernel_grads.launches = 0
 
 
-def logml_probe_grads_reference(kernel, x, alpha, u, z):
+def logml_probe_grads_reference(kernel, x, alpha, u, z, *, ard: bool = False):
     """Plain version: forms ``what = (U Z^T + Z U^T) / (2 s)``, then ``W``
     and its contraction, explicitly."""
     what = (u @ z.T + z @ u.T) * (0.5 / z.shape[1])
-    return _contract_reference(kernel, x, alpha, what)
+    return _contract_reference(kernel, x, alpha, what, ard)
 
 
-def logml_probe_grads(kernel, x, alpha, u, z):
-    """``(d_kernel, (tkw, trw))`` as :func:`logml_kernel_grads` returns
-    them, with ``W_hat`` the Hutchinson estimate ``(U Z^T + Z U^T) / (2 s)``
-    of ``K^-1`` from an ``(n, s)`` probe block ``z`` and ``u = K^-1 z``,
-    ``s >= 1``: O(n^2 s) work instead of the exact kernel's n^3/6. On the
-    card ``n`` must be a multiple of :data:`TILE`. On CPU tensors this is
-    the plain version."""
+def logml_probe_grads(kernel, x, alpha, u, z, *, ard: bool = False):
+    """``(d_kernel, (tkw, trw))`` (and ``sdot`` with ``ard=True``) as
+    :func:`logml_kernel_grads` returns them, with ``W_hat`` the Hutchinson
+    estimate ``(U Z^T + Z U^T) / (2 s)`` of ``K^-1`` from an ``(n, s)``
+    probe block ``z`` and ``u = K^-1 z``, ``s >= 1``: O(n^2 s) work instead
+    of the exact kernel's n^3/6. On the card ``n`` must be a multiple of
+    :data:`TILE`. On CPU tensors this is the plain version."""
     x = as_locations(x)
     n = x.shape[0]
     if (u.ndim != 2 or tuple(u.shape) != tuple(z.shape) or u.shape[0] != n
             or u.shape[1] < 1 or tuple(alpha.shape) != (n,)):
         raise ValueError(f"u {tuple(u.shape)} / z {tuple(z.shape)} / alpha "
                          f"{tuple(alpha.shape)} for n = {n}")
+    _check_outputs(kernel, x, ard)
     if x.device.type == "cpu":
-        return logml_probe_grads_reference(kernel, x, alpha, u, z)
+        return logml_probe_grads_reference(kernel, x, alpha, u, z, ard=ard)
     xc, table, params, partials, out = _prepare(
-        kernel, x, alpha, [(u, "u", 2), (z, "z", 2)])
+        kernel, x, alpha, [(u, "u", 2), (z, "z", 2)], ard)
     fn = _build.function("logml_probe_grad", "gpx_logml_probe_grad",
                          _PROBE_ARGS)
     status = fn(_build.ptr(u), u.stride(0), _build.ptr(z), z.stride(0),
                 u.shape[1], _build.ptr(xc), xc.shape[1], _build.ptr(alpha), n,
-                _build.ptr(table), table.shape[0] // 2, _build.ptr(params),
-                params.shape[0], _build.ptr(partials), _build.ptr(out),
-                _build.stream(x.device))
+                _build.ptr(table), table.shape[0] // COLS, _build.ptr(params),
+                params.shape[0], int(ard), _build.ptr(partials),
+                _build.ptr(out), _build.stream(x.device))
     _build.check(status, "logml_probe_grads")
     logml_probe_grads.launches += 1
-    return _unpack(kernel, out)
+    return _unpack(kernel, out, ard)
 
 
 logml_probe_grads.launches = 0

@@ -22,7 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from gpx_torch.kernels import has_white
 from gpx_torch.ops import _build
 from gpx_torch.ops.distance import sq_distances
-from gpx_torch.ops.terms import table_tensors
+from gpx_torch.ops.terms import COLS, table_tensors
 from gpx_torch.params import leaves
 
 _ARGS = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.P, _build.L,
@@ -136,7 +136,7 @@ def _launch(kernel, x1, x2, v2, nugget, *, symmetric):
     partials = torch.empty((splits, n1, r), dtype=torch.float64, device=dev)
     fn = _build.function("matvec", "gpx_matvec", _ARGS)
     status = fn(_build.ptr(x1), _build.ptr(x2), n1, n2, d, _build.ptr(v2),
-                v2.stride(0), r, _build.ptr(table), table.shape[0] // 2,
+                v2.stride(0), r, _build.ptr(table), table.shape[0] // COLS,
                 _build.ptr(params), params.shape[0], float(nugget),
                 int(symmetric), _build.ptr(partials), _build.ptr(out),
                 out.stride(0), _build.stream(dev))

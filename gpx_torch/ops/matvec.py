@@ -6,7 +6,7 @@ the iterative path (:mod:`gpx_torch.models.gp_iterative`) needs O(N (D + R))
 memory. A float32 CUDA tensor with a stationary, Pallas-safe kernel goes to
 the CUDA kernel (:mod:`gpx_torch.ops.cuda_matvec`), at any N and any number
 of columns, and raises ``NotImplementedError`` where the CUDA term table
-does not hold the kernel yet. CPU tensors, float64, and kernels that are
+does not hold the kernel yet (a ``Product`` that holds a ``Sum``). CPU tensors, float64, and kernels that are
 not stationary or not Pallas-safe (which the JAX package sends to XLA too)
 take the plain row-blocked torch route. A build or launch error raises.
 """
@@ -33,8 +33,8 @@ def _uses_cuda_kernel(kernel, x) -> bool:
         return False
     if not kernel.cuda_supported:
         raise NotImplementedError(
-            f"the matvec on the card needs the CUDA term table to hold "
-            f"{type(kernel).__name__} (not ported yet)")
+            f"the matvec on the card needs the CUDA term table to hold this "
+            f"{type(kernel).__name__} (a Product of a Sum is not ported yet)")
     return True
 
 

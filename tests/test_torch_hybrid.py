@@ -215,8 +215,9 @@ def test_hybrid_entry_is_deterministic_and_shaped(rng):
 
 
 @pytest.mark.parametrize("kernel,error", [
-    (lambda: gt.ard(gt.se(1.0, 1.0, **F64) + gt.white(0.5, **F64),
-                    [0.5, 2.0], **F64), NotImplementedError),
+    # one top-level Ard runs (tests/test_torch_families.py); two do not
+    (lambda: gt.ard(gt.ard(gt.se(1.0, 1.0, **F64) + gt.white(0.5, **F64),
+                           [0.5, 2.0], **F64), [1.0, 1.0], **F64), ValueError),
     (lambda: gt.linear(1.0, 0.5, **F64) + gt.white(0.5, **F64), ValueError),
     (lambda: gt.matern(1.0, 1.3, 2.0, **F64), ValueError),
 ], ids=["ard", "non-stationary", "not-pallas-safe"])

@@ -164,7 +164,9 @@ def test_table_tensors_cache_structure_not_values():
     t1, p1 = terms.table_tensors(k1, "cpu")
     t2, p2 = terms.table_tensors(k2, torch.device("cpu"))
     assert t1 is t2
-    assert t1.dtype == torch.int32 and t1.tolist() == [terms.SE, 0, terms.WHITE, 2]
+    # rows of (type, offset, aux, group)
+    assert t1.dtype == torch.int32 and t1.tolist() == [terms.SE, 0, 0, 0,
+                                                       terms.WHITE, 2, 0, 1]
     assert p1.tolist() == [3.0, 5.5, 0.5] and p2.tolist() == [1.0, 2.0, 0.25]
     t3, _ = terms.table_tensors(gt.white(0.5, **cpu) + gt.se(3.0, 5.5, **cpu), "cpu")
-    assert t3.tolist() == [terms.WHITE, 0, terms.SE, 1]
+    assert t3.tolist() == [terms.WHITE, 0, 0, 0, terms.SE, 1, 0, 1]

@@ -41,7 +41,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    estimator in float64, one Matern 3/2 + White eval likewise,
    ``fit_iterative`` against a dense float64 posterior, one eval at
    N = 131,072 with its memory, launch counts, stage times and ms/eval;
-5. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+5. the sampler slice (``phase_sampler``): the 2-pass legs (``fast=True``)
+   of trmm (both M21 modes, 8192^2, ragged and unaligned views) and of
+   logml_kernel_grads (n = 4096, 4160, 16384; F2's ARD leg) against
+   plain versions that round the same operand to TF32, within the 3-pass
+   checks' limits, a repeated call bitwise, and each check shown to fail
+   for the other operand rounded; the bench case through
+   ``logml_value_and_grad(fast_gradients=True)`` (chol_inv(fast=True)'s
+   L bitwise, M apart only in the outermost M21; every output within the
+   JAX package's recorded fast-mode deviation against float64; fast and
+   exact ms/eval in turns); then ``infer.sample_hmc`` at
+   benchmarks/sampler_scale.py's --ess case, n = 4096 (recovery, split
+   R-hat, accept rates, launch counts, ms per leapfrog gradient, min ESS
+   and ESS/s), ``gradients="hybrid"`` on the same data, and one chain at
+   N = 16,384;
+6. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
     python3 chip_smoke.py --no-iterative
 
@@ -54,6 +68,10 @@ phase 4 runs none of the factor's or the gradient's kernels.
 runs phase 1 and phase 3's SE + White cases (exact and hybrid) only. They
 use nothing that earlier trees of the port lack, so a copy of this script
 beside an earlier tree's ``gpx_torch`` times both trees alike.
+
+    python3 chip_smoke.py --sampler-only
+
+runs phase 1 and phase 5 only, with no ``kernels`` or ``ok`` line.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -188,17 +206,20 @@ def _odd_view(torch, rows, cols, ld, off, gen):
     return buf[off:].view(rows, ld)[:, :cols]
 
 
-def _hold_trmm(torch, b, l, mode, neg=False, out=None) -> float:
-    """trmm against its plain version in float64 (_hold_ulps)."""
+def _hold_trmm(torch, b, l, mode, neg=False, out=None, fast=False) -> float:
+    """trmm against its plain version in float64 (_hold_ulps); with
+    ``fast`` the 2-pass leg against the plain version that rounds the same
+    operand to TF32."""
     from gpx_torch.ops import cuda_trmm
 
-    got = cuda_trmm.trmm(b, l, mode=mode, neg=neg, out=out)
+    got = cuda_trmm.trmm(b, l, mode=mode, neg=neg, fast=fast, out=out)
     check(out is None or got.data_ptr() == out.data_ptr(), "trmm: out ignored")
     b64, l64 = b.double(), l.double()
-    want = cuda_trmm.trmm_reference(b64, l64, mode=mode, neg=neg)
+    want = cuda_trmm.trmm_reference(b64, l64, mode=mode, neg=neg, fast=fast)
     scale = cuda_trmm.trmm_reference(b64.abs(), l64.abs(), mode=mode)
     return _hold_ulps(torch, f"trmm {mode} b {tuple(b.shape)} ld {b.stride(0)} "
-                      f"neg={neg}", got, want, scale, PRODUCT_ULPS)
+                      f"neg={neg}" + (" fast" if fast else ""), got, want,
+                      scale, PRODUCT_ULPS)
 
 
 def _hold_syrk(torch, a, b, out=None) -> float:
@@ -250,6 +271,14 @@ def phase_setup():
     secs = _build.build_all(verbose=True)
     print(f"build: {secs:.1f} s ({len(_build.SOURCES)} sources, nvcc in "
           f"parallel)", flush=True)
+    # every kernel instance free of spills (ptxas -v: "N bytes spill
+    # stores, M bytes spill loads" per function)
+    spills = [ln.strip() for log in _build.LOGS.values()
+              for ln in log.splitlines() if "spill" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    print(f"ptxas: {sum(log.count('spill stores') for log in _build.LOGS.values())}"
+          f" functions, spills: {spills}", flush=True)
+    check(not spills, "a kernel instance spills registers")
     return card
 
 
@@ -838,23 +867,26 @@ def _f64_kernel(gt, kern):
 
 
 def _hold_grads(torch, gt, kern, x, alpha, l_inv, ard=False, label="",
-                witness=False) -> float:
+                witness=False, fast=False) -> float:
     """logml_kernel_grads against its plain version (_hold); with ``ard``,
     ``x`` holds the scaled coordinates and the sums sdot are held too;
-    ``witness``: _hold's float32 plain version as a second limit."""
+    ``witness``: _hold's float32 plain version as a second limit; ``fast``:
+    the 2-pass leg against the plain version that rounds the same operand
+    to TF32."""
     from gpx_torch.ops import cuda_logml_grad
 
-    got = _outputs(gt, cuda_logml_grad.logml_kernel_grads(kern, x, alpha, l_inv,
-                                                          ard=ard))
+    got = _outputs(gt, cuda_logml_grad.logml_kernel_grads(
+        kern, x, alpha, l_inv, ard=ard, fast=fast))
     args = (_f64_kernel(gt, kern), x.double(), alpha.double())
     l64 = l_inv.double()
     want = _outputs(gt, cuda_logml_grad.logml_kernel_grads_reference(
-        *args, l64, ard=ard))
+        *args, l64, ard=ard, fast=fast))
     f32 = (_outputs(gt, cuda_logml_grad.logml_kernel_grads_reference(
-        kern, x, alpha, l_inv, ard=ard)) if witness else None)
+        kern, x, alpha, l_inv, ard=ard, fast=fast)) if witness else None)
     scales = _term_scales(torch, *args, l64.T @ l64, ard=ard)
     return _hold(f"logml_kernel_grads {label}n={x.shape[0]}"
-                 + (f" ard d={x.shape[1]}" if ard else ""), got, want, scales,
+                 + (f" ard d={x.shape[1]}" if ard else "")
+                 + (" fast" if fast else ""), got, want, scales,
                  _names(gt, kern, x.shape[1] if ard else 0), f32)
 
 
@@ -2052,6 +2084,397 @@ def _scale_run(torch, gt, gi):
             "alpha_true_residual": res_true}
 
 
+# -- phase 5: the sampler slice ---------------------------------------------
+
+N_SAMPLER = 4096      # benchmarks/sampler_scale.py --ess: the first fused n
+TRUTH = (3.0, 5.5, 0.5)  # SE h, SE sigma, White sigma (sampler_scale.py)
+# The JAX package's recorded fast-mode deviation at N = 16k (PERF_TPU.md,
+# "Round-3 late": value 0.22%, White 0.12%, sigma 0.76% relative, h 18.6
+# absolute): a TPU accuracy record, used here as the fast path's limit
+# against float64.
+FAST_LIMITS = {"value_rel": 2.2e-3, "white_rel": 1.2e-3, "sigma_rel": 7.6e-3,
+               "h_abs": 20.0}
+
+
+def _fast_trmm(torch, records):
+    """trmm(fast=True) in both M21 modes against its TF32-rounding plain
+    version (_hold_trmm, PRODUCT_ULPS) at 8192^2 and on ragged and
+    unaligned views on both tile sizes; a repeated call bitwise; the check
+    fails for a plain version that rounds the other operand; times beside
+    the 3-pass leg's."""
+    from gpx_torch.ops import cuda_trmm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = 8192
+    l = torch.randn((n, n), generator=gen, device=dev).tril_() / math.sqrt(n)
+    l.diagonal().add_(2.0)
+    b = torch.randn((n, n), generator=gen, device=dev)
+    modes = (("right_lower", True), ("left_lower", False))
+    err = max(_hold_trmm(torch, b, l, mode, neg, fast=True)
+              for mode, neg in modes)
+    for kn, mr in ((997, 500), (4999, 4997)):
+        lr = l[:kn, :kn].contiguous()
+        lv = _odd_view(torch, kn, kn, kn + 4, 1, gen)
+        lv.copy_(lr)
+        for mode, neg in modes:
+            shape = (kn, mr) if mode == "left_lower" else (mr, kn)
+            err = max(err, _hold_trmm(torch, b[:shape[0], :shape[1]].contiguous(),
+                                      lr, mode, neg, fast=True))
+            bv = _odd_view(torch, *shape, shape[1] + 3, 3, gen)
+            err = max(err, _hold_trmm(
+                torch, bv, lv, mode, neg, fast=True,
+                out=_odd_view(torch, *shape, shape[1] + 5, 1, gen)))
+    for mode, neg in modes:
+        got = cuda_trmm.trmm(b, l, mode=mode, neg=neg, fast=True)
+        check(torch.equal(got, cuda_trmm.trmm(b, l, mode=mode, neg=neg,
+                                              fast=True)),
+              f"trmm {mode} fast: a repeated call differs")
+        # the wrong operand rounded: the check must tell it from the kernel
+        b64, l64 = b.double(), l.double()
+        r64 = cuda_trmm.round_tf32(b64)
+        wrong = (-(r64 @ l64) if mode == "right_lower" else
+                 cuda_trmm.round_tf32(l64) @ b64)
+        scale = cuda_trmm.trmm_reference(b64.abs(), l64.abs(), mode=mode)
+        worst = float(((got.double() - wrong).abs() / scale).max()) / EPS32
+        print(f"trmm {mode} fast against a plain version rounding the other "
+              f"operand: {worst:.1f} f32 ulps of its sum of |terms| (the "
+              f"check's limit {PRODUCT_ULPS:g})", flush=True)
+        check(worst > PRODUCT_ULPS, f"trmm {mode} fast: the check cannot tell "
+              f"which operand is rounded")
+        del got, wrong, r64
+    ms = {}
+    for leg in ("fast", "exact", "exact", "fast"):
+        ms.setdefault(leg, []).append(time_ms(torch, lambda: cuda_trmm.trmm(
+            b, l, mode="right_lower", fast=leg == "fast")))
+    plain = time_ms(torch, lambda: cuda_trmm.trmm_reference(
+        b, l, mode="right_lower", fast=True))
+    bound = bound_ms(tf32_flops=2.0 * n ** 3, nbytes=4.0 * (n * n * 2.5))
+    print(f"trmm right_lower 8192^2 in turns: fast {ms['fast']} ms, 3-pass "
+          f"{ms['exact']} ms; fast plain {plain:.3f} ms; 2-pass bound "
+          f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
+    records["trmm"].update(fast_ms=min(ms["fast"]), fast_plain_ms=plain,
+                           fast_bound_ms=bound[0], fast_max_abs_err=err,
+                           fast_turns_ms={"fast": ms["fast"],
+                                          "exact": ms["exact"]})
+    del l, b
+    torch.cuda.empty_cache()
+
+
+def _fast_grads(torch, gt, records):
+    """logml_kernel_grads(fast=True) against its TF32-rounding plain version
+    under _hold at n = 4096, 4160 and 16,384 (SE + White) and F2's ARD leg
+    at n = 4096 and 4160 (D = 3, with _hold's float32 witness as in phase
+    2b); a repeated call bitwise; the check fails for a plain version that
+    rounds the other operand; times beside the 3-pass leg's."""
+    from gpx_torch.ops import cuda_chol, cuda_gram, cuda_logml_grad
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kern = gt.se(3.0, 5.5) + gt.white(0.5)
+    f2 = gt.matern(2.0, 2.5, 1.0) + gt.white(0.25)
+    x = torch.rand((N_BENCH, 1), generator=gen, device=dev) * 20.0 - 10.0
+    x3 = torch.rand((4160, 3), generator=gen, device=dev) * 20.0 - 10.0
+    u3 = x3 / torch.tensor(ELL3, device=dev)
+    err = 0.0
+    for n in (4096, 4160, N_BENCH):
+        xs = x[:n].contiguous()
+        _, m = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, xs, nugget=1e-3))
+        alpha = torch.randn(n, generator=gen, device=dev) * 0.1
+        err = max(err, _hold_grads(torch, gt, kern, xs, alpha, m, fast=True))
+        if n == 4096:
+            us = u3[:n].contiguous()
+            _, mu = cuda_chol.chol_inv(cuda_gram.gram_cuda(f2, us, nugget=1e-3))
+            for nn in (4096, 4160):
+                if nn == 4160:
+                    us = u3.contiguous()
+                    _, mu = cuda_chol.chol_inv(cuda_gram.gram_cuda(
+                        f2, us, nugget=1e-3))
+                au = torch.randn(nn, generator=gen, device=dev) * 0.1
+                err = max(err, _hold_grads(torch, gt, f2, us, au, mu, ard=True,
+                                           label="F2 ", witness=True,
+                                           fast=True))
+            del mu
+    first = _outputs(gt, cuda_logml_grad.logml_kernel_grads(
+        kern, x, alpha, m, fast=True))
+    again = _outputs(gt, cuda_logml_grad.logml_kernel_grads(
+        kern, x, alpha, m, fast=True))
+    check(first == again, "logml_kernel_grads fast: a repeated call differs")
+    # the other operand rounded (the first, li_i): its kinv is the
+    # transpose of the fast one's, mirrored from the upper triangle
+    args = (_f64_kernel(gt, kern), x.double(), alpha.double())
+    m64 = m.double()
+    p = cuda_logml_grad.round_tf32(m64).T @ m64
+    wrong = _outputs(gt, cuda_logml_grad._contract_reference(
+        *args, torch.tril(p) + torch.tril(p, -1).T, False))
+    scales = _term_scales(torch, *args, m64.T @ m64)
+    ratio = max(abs(g - w) / min(4.0 * EPS32 * s, 1e-2 * abs(w))
+                for g, w, s in zip(first, wrong, scales))
+    print(f"logml_kernel_grads n={N_BENCH} fast against a plain version "
+          f"rounding the other operand: worst output at {ratio:.2f} of its "
+          f"_hold limit", flush=True)
+    check(ratio > 1.0, "logml_kernel_grads fast: the check cannot tell which "
+          "operand is rounded")
+    ms = {}
+    for leg in ("fast", "exact", "exact", "fast"):
+        ms.setdefault(leg, []).append(time_ms(
+            torch, lambda: cuda_logml_grad.logml_kernel_grads(
+                kern, x, alpha, m, fast=leg == "fast"), reps=3))
+    plain = time_ms(torch, lambda: cuda_logml_grad.logml_kernel_grads_reference(
+        kern, x, alpha, m, fast=True), reps=3)
+    bound = bound_ms(tf32_flops=2.0 * N_BENCH ** 3 / 3.0,
+                     nbytes=4.0 * N_BENCH * N_BENCH / 2)
+    print(f"logml_kernel_grads n={N_BENCH} in turns: fast {ms['fast']} ms, "
+          f"3-pass {ms['exact']} ms; fast plain {plain:.3f} ms; 2-pass bound "
+          f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
+    records["logml_kernel_grads"].update(
+        fast_ms=min(ms["fast"]), fast_plain_ms=plain, fast_bound_ms=bound[0],
+        fast_max_abs_err=err, fast_turns_ms={"fast": ms["fast"],
+                                             "exact": ms["exact"]})
+    del m
+    torch.cuda.empty_cache()
+
+
+def _fast_path(torch, gt, records):
+    """The bench case (N = 16,384) through logml_value_and_grad(
+    fast_gradients=True): chol_inv(fast=True)'s L bitwise fast=False's and
+    M apart only in the outermost M21; the fast legs launched (2 trmm, 1
+    gradient); every output within FAST_LIMITS against float64; the fast
+    and exact ms/eval in turns; the outermost M21's two products and the
+    gradient kernel, fast against 3-pass."""
+    from gpx_torch.models import gp
+    from gpx_torch.ops import cuda_chol, cuda_gram, cuda_logml_grad, cuda_trmm
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(-10.0, 10.0, size=(N_BENCH, 1))
+                        .astype(np.float32), device="cuda")
+    y = torch.as_tensor(rng.normal(size=N_BENCH).astype(np.float32),
+                        device="cuda")
+    params = gt.Parameters(mean=gt.zero(), kernel=gt.se(3.0, 5.5) + gt.white(0.5))
+    kmat = cuda_gram.gram_cuda(params.kernel, x, nugget=gp.LOGML_NUGGET)
+    l, m = cuda_chol.chol_inv(kmat)
+    lf, mf = cuda_chol.chol_inv(kmat, fast=True)
+    h = cuda_chol._split(N_BENCH)
+    rest = torch.ones_like(m, dtype=torch.bool)
+    rest[h:, :h] = False
+    m21_rel = rel_max(mf[h:, :h].double(), m[h:, :h].double())
+    print(f"chol_inv fast n={N_BENCH}: L bitwise {torch.equal(l, lf)}; M "
+          f"bitwise outside the outermost M21 {torch.equal(m[rest], mf[rest])}; "
+          f"M21 max difference {m21_rel:.3e} of its largest entry", flush=True)
+    check(torch.equal(l, lf), "chol_inv(fast=True): L differs")
+    check(torch.equal(m[rest], mf[rest]),
+          "chol_inv(fast=True): M differs outside the outermost M21")
+    check(m21_rel > 0.0, "chol_inv(fast=True): the outermost M21 is the "
+          "3-pass one")
+    # the outermost M21's two products, fast against 3-pass, in turns
+    l21, m11, m22 = l[h:, :h], m[:h, :h], m[h:, h:]
+    out = torch.empty_like(l21)
+
+    def m21(fast):
+        t1 = cuda_trmm.trmm(l21, m11, mode="right_lower", neg=True, fast=fast)
+        cuda_trmm.trmm(t1, m22, mode="left_lower", fast=fast, out=out)
+
+    m21_ms = {}
+    for leg in ("fast", "exact", "exact", "fast"):
+        m21_ms.setdefault(leg, []).append(time_ms(
+            torch, lambda: m21(leg == "fast"), reps=3))
+    print(f"outermost M21 (two trmm, 8192^2) in turns: fast {m21_ms['fast']} "
+          f"ms, 3-pass {m21_ms['exact']} ms", flush=True)
+    del l, m, lf, mf, l21, m11, m22, out, kmat, rest
+    torch.cuda.empty_cache()
+
+    for c in (cuda_trmm.trmm, cuda_logml_grad.logml_kernel_grads):
+        c.launches = c.fast_launches = 0
+    value, grads = gp.logml_value_and_grad(params, x, y, fast_gradients=True)
+    torch.cuda.synchronize()
+    fast_launches = {"trmm": cuda_trmm.trmm.fast_launches,
+                     "logml_kernel_grads":
+                         cuda_logml_grad.logml_kernel_grads.fast_launches}
+    print(f"fast path launches: {json.dumps(fast_launches)} (trmm "
+          f"{cuda_trmm.trmm.launches} in all)", flush=True)
+    check(fast_launches == {"trmm": 2, "logml_kernel_grads": 1},
+          "the fast path did not take the 2-pass legs")
+    for name, k in fast_launches.items():
+        records[name]["fast_launches"] = k
+    v64, g64 = _f64(torch, gt, gp, x, y)
+    got = [float(t) for t in gt.params.leaves(grads)]
+    want = [float(t) for t in gt.params.leaves(g64)]
+    errs = {"value_rel": abs(float(value) - float(v64)) / abs(float(v64)),
+            "h_abs": abs(got[0] - want[0]),
+            "sigma_rel": abs(got[1] - want[1]) / abs(want[1]),
+            "white_rel": abs(got[2] - want[2]) / abs(want[2])}
+    print(f"fast path value {float(value):.8e} f64 {float(v64):.8e}; grads "
+          f"(h, sigma, white) {got} f64 {want}; errors {json.dumps(errs)} "
+          f"(limits {json.dumps(FAST_LIMITS)})", flush=True)
+    check(all(math.isfinite(g) for g in [float(value), *got]),
+          "fast path: not finite")
+    for k, e in errs.items():
+        check(e <= FAST_LIMITS[k], f"fast path: {k} {e:.3e} outside "
+              f"{FAST_LIMITS[k]:g}")
+    turns = {"fast": [], "exact": []}
+    for leg in ("exact", "fast", "exact", "fast"):
+        turns[leg].append(_median_ms(torch, lambda: gp.logml_value_and_grad(
+            params, x, y, fast_gradients=leg == "fast"))[0])
+    print(f"fast_mode_ms in turns (median of 5 each, CUDA events): fast "
+          f"{turns['fast']}, exact {turns['exact']}", flush=True)
+    return {"errors": errs, "fast_mode_ms": turns["fast"],
+            "exact_ms_per_eval": turns["exact"], "m21_ms": m21_ms,
+            "m21_max_rel": m21_rel}
+
+
+def _sampler_data(torch, gt, n):
+    """sampler_scale.py's --ess data at n: x sorted U(-10, 10) (numpy seed
+    0; the JAX package's threefry draw has no torch counterpart), y drawn
+    from SE(3.0, 5.5) + White(0.5) with the draw nugget 1e-3 by a float64
+    Cholesky on the card, both float32."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(-10.0, 10.0, size=n)).reshape(-1, 1)
+    kern = gt.se(TRUTH[0], TRUTH[1], dtype=torch.float64) + gt.white(
+        TRUTH[2], dtype=torch.float64)
+    x64 = torch.as_tensor(x, device="cuda")
+    k = kern.gram(x64, nugget=1e-3)
+    z = torch.as_tensor(rng.normal(size=n), device="cuda")
+    y = torch.linalg.cholesky(k) @ z
+    return x64.float(), y.float()
+
+
+def _log_prior(gt, torch):
+    """sampler_scale.py's prior: Gamma(2, rate 0.5) on h, sigma and the
+    White sigma."""
+    from gpx_torch.distributions import Gamma
+
+    pr = Gamma(torch.tensor(2.0, device="cuda"), torch.tensor(0.5, device="cuda"))
+
+    def log_prior(p):
+        a, b = p.kernel.kernels
+        return pr.logpdf(a.h) + pr.logpdf(a.sigma) + pr.logpdf(b.sigma)
+
+    return log_prior
+
+
+def _sampler(torch, gt):
+    """sample_hmc at sampler_scale.py's --ess recipe at n = 4096 (4 chains,
+    eps=None by dual averaging with its diagonal mass window, 64 warmup,
+    128 kept draws, l = 5, analytic gradients; init at the truth with
+    jitter 0.1, where the recipe's MAP init waits for the optimizer's
+    port): recovery, split-R-hat, accept rates, the fused route by launch
+    counts, min ESS and ESS/s; then gradients="hybrid" on the same data (2
+    chains, unit mass, a fixed eps: the adapted chains' step along their
+    stiffest direction, 32 draws) and one chain at N = 16,384 on the bench
+    data (half that eps, 4 draws, l = 3). The mass window is the recipe's:
+    with unit mass, a step that the noise's posterior sd (~0.02 in log
+    space) bounds crawls along h's (~0.5), and the chains missed the
+    split-R-hat gate on the card."""
+    from gpx_torch import diagnostics
+    from gpx_torch.infer import sample_hmc
+
+    x, y = _sampler_data(torch, gt, N_SAMPLER)
+    truth = gt.Parameters(mean=gt.zero(), kernel=gt.se(TRUTH[0], TRUTH[1])
+                          + gt.white(TRUTH[2]))
+    log_prior = _log_prior(gt, torch)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post = sample_hmc(0, x, y, truth, log_prior, 128, l=5, eps=None,
+                      warmup_iters=64, adapt_mass=True, n_chains=4,
+                      analytic_gradients=True, init_jitter=0.1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    print("sampler path launches (n = 4096): " + json.dumps(launches),
+          flush=True)
+    for name, k in launches.items():
+        if name == "logml_probe_grads":
+            check(k == 0, "the sampler launched the probe kernel")
+        else:
+            check(k > 0, f"{name} was not launched on the sampler path")
+    flat = post.flat.double().cpu()
+    check(bool(torch.isfinite(flat).all()), "sampler: non-finite draws")
+    rows = diagnostics.summary(flat, post.names)
+    print(diagnostics.format_summary(rows), flush=True)
+    pooled = flat.reshape(-1, flat.shape[-1])
+    q = torch.quantile(pooled, torch.tensor([0.01, 0.99], dtype=flat.dtype),
+                       dim=0)
+    recovered = {nm: bool(q[0, j] <= TRUTH[j] <= q[1, j])
+                 for j, nm in enumerate(post.names)}
+    accept = [float(a) for a in post.accept_rate]
+    grads = launches["logml_kernel_grads"]
+    min_ess = min(r["ess"] for r in rows.values())
+    max_rhat = max(r["rhat"] for r in rows.values())
+    out = {"wall_s": wall, "leapfrog_gradients": grads,
+           "ms_per_gradient": 1e3 * wall / grads, "min_ess": min_ess,
+           "ess_per_s": min_ess / wall, "max_rhat": max_rhat,
+           "accept": accept, "eps": post.extras["eps"].tolist(),
+           "mass": post.extras["mass"].tolist(), "recovered": recovered}
+    print("sampler n=4096: " + json.dumps(out), flush=True)
+    check(all(recovered.values()), "sampler: a true hyperparameter outside "
+          "the pooled central 98% interval")
+    check(max_rhat < 1.1, f"sampler: split-R-hat {max_rhat:.3f} >= 1.1")
+    check(all(0.3 < a < 0.999 for a in accept),
+          f"sampler: accept rates {accept} outside (0.3, 0.999)")
+
+    # the hybrid force with exact accepts, unit mass, at the step the
+    # adapted chains take along their stiffest direction
+    eps = float(torch.median(post.extras["eps"] / torch.sqrt(
+        post.extras["mass"].max(dim=1).values)))
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    hyb = sample_hmc(1, x, y, truth, log_prior, 32, l=5, eps=eps, n_chains=2,
+                     gradients="hybrid", init_jitter=0.1)
+    torch.cuda.synchronize()
+    hyb_wall = time.perf_counter() - t0
+    h_accept = [float(a) for a in hyb.accept_rate]
+    h_launches = {k: c.launches for k, c in counters.items()}
+    print(f"hybrid sampler n=4096 eps {eps:.4g}: accept {h_accept}, "
+          f"{hyb_wall:.2f} s, launches {json.dumps(h_launches)}", flush=True)
+    check(bool(torch.isfinite(hyb.flat).all()), "hybrid sampler: non-finite")
+    check(all(a > 0.3 for a in h_accept), "hybrid sampler: accept <= 0.3")
+    check(h_launches["logml_probe_grads"] > 0,
+          "hybrid sampler: the probe kernel was not launched")
+    out["hybrid"] = {"accept": h_accept, "wall_s": hyb_wall,
+                     "probe_launches": h_launches["logml_probe_grads"]}
+
+    # one chain at N = 16,384 on the bench data
+    rng = np.random.default_rng(0)
+    xb = torch.as_tensor(rng.uniform(-10.0, 10.0, size=(N_BENCH, 1))
+                         .astype(np.float32), device="cuda")
+    yb = torch.as_tensor(rng.normal(size=N_BENCH).astype(np.float32),
+                         device="cuda")
+    counters["logml_kernel_grads"].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = sample_hmc(2, xb, yb, truth, log_prior, 4, l=3, eps=eps / 2.0,
+                     n_chains=1, analytic_gradients=True, init_jitter=0.0)
+    torch.cuda.synchronize()
+    big_wall = time.perf_counter() - t0
+    big_grads = counters["logml_kernel_grads"].launches
+    print(f"sampler N={N_BENCH}: {big_grads} leapfrog gradients in "
+          f"{big_wall:.2f} s, {1e3 * big_wall / big_grads:.2f} ms each; "
+          f"accept {float(big.accept_rate[0]):.2f}", flush=True)
+    check(bool(torch.isfinite(big.flat).all()), f"sampler N={N_BENCH}: "
+          "non-finite draws")
+    out["n16384"] = {"ms_per_gradient": 1e3 * big_wall / big_grads,
+                     "gradients": big_grads,
+                     "accept": float(big.accept_rate[0])}
+    return out
+
+
+def phase_sampler(torch, gt, records):
+    """Phase 5: the fast legs against their plain versions (a), the fast
+    path at the bench case (b), and HMC over the hyperparameters (c)."""
+    t0 = time.perf_counter()
+    _fast_trmm(torch, records)
+    _fast_grads(torch, gt, records)
+    out = {"fast_path": _fast_path(torch, gt, records),
+           "sampler": _sampler(torch, gt)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase_sampler: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2062,6 +2485,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     card = phase_setup()
+    if "--sampler-only" in sys.argv[1:]:
+        records = {name: {} for name in _counters()}
+        summary = phase_sampler(torch, gt, records)
+        print("summary: " + json.dumps(summary), flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s (sampler only)",
+              flush=True)
+        return 0
     if "--bench-only" in sys.argv[1:]:
         records = {name: {} for name in _counters()}
         summary = phase_bench(torch, gt, records)
@@ -2084,6 +2514,7 @@ def main() -> int:
         print(f"total {time.perf_counter() - t0:.1f} s (phases 1-3)", flush=True)
         return 0
     summary["iterative"] = phase_iterative(torch, gt, records)
+    summary["sampler"] = phase_sampler(torch, gt, records)
     print("summary: " + json.dumps(summary), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     order = ("gram", "trmm", "syrk_lower", "chol_inv_tile", "chol_inv_tile_off",

@@ -6,7 +6,7 @@ everything else is plain functions on tensors. Entry points run on the CUDA
 card unless the caller passes CPU tensors or ``device="cpu"``.
 """
 
-from gpx_torch import kernels, means, params
+from gpx_torch import bijectors, distributions, kernels, means, params
 from gpx_torch.kernels import (
     Ard,
     Linear,
@@ -29,6 +29,8 @@ from gpx_torch.means import Plane, Zero, plane, zero
 from gpx_torch.params import Parameters
 
 __all__ = [
+    "bijectors",
+    "distributions",
     "kernels",
     "means",
     "params",

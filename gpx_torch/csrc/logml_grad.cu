@@ -49,6 +49,10 @@
 // - The k loop runs at the 255-register cap: no instance spills (-Xptxas
 //   -v), which the non-inlined epilogue and the tiles' own base pointers
 //   keep so.
+// - fast (gpx's logml_kernel_grads(fast=True), _dot_bf16x2 on li_j): the
+//   second operand Li[k, j-tile] is rounded to TF32 and the first kept
+//   whole, two MMAs a step instead of three (mma_tf32.cuh, PASSES = 2), a
+//   template flag beside VEC and ARD; 2^-11 relative per product.
 #include "grad_epilogue.cuh"
 #include "mma_tf32.cuh"
 
@@ -83,7 +87,7 @@ __device__ __noinline__ void quadrant_epilogue(
                           red, wkp, part);
 }
 
-template <bool VEC, bool ARD>
+template <bool VEC, bool ARD, int PASSES>
 __global__ void __launch_bounds__(T::THREADS, 1)
 logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
                   const float* __restrict__ x, int d,
@@ -115,8 +119,8 @@ logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
   const int wr = (warp / T::WN) * T::MI * 16;  // warp's first row in the tile
   const int wc = (warp % T::WN) * T::NI * 8;   // and first column
   float acc[T::MI][T::NI][4], sum[T::MI][T::NI][4];
-  gpx::tf32::mainloop<T, true, false, true>(smem, load, i0, n, wr, wc, acc,
-                                            sum);
+  gpx::tf32::mainloop<T, true, false, true, PASSES>(smem, load, i0, n, wr,
+                                                    wc, acc, sum);
 
   // every warp is done with the ring: stage the K^-1 tile in it
   __syncthreads();
@@ -151,13 +155,13 @@ logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
   }
 }
 
-template <bool VEC, bool ARD>
+template <bool VEC, bool ARD, int PASSES>
 int launch(const float* li, int64_t ldli, const float* x, int d,
            const float* alpha, int n, const int* table, int n_terms,
            const float* params, int n_params, int n_out, float* partials,
            cudaStream_t s) {
   static bool attr = false;
-  auto kern = logml_grad_kernel<VEC, ARD>;
+  auto kern = logml_grad_kernel<VEC, ARD, PASSES>;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
@@ -178,9 +182,10 @@ extern "C" {
 // n must be a multiple of 64; n_out = n_params + 2 (+ d with ard), at most
 // 128; partials holds (n/64)(n/64 + 1)/2 x n_out floats, out n_out: the
 // gradients in params order, tr(W_hat K), tr(W_hat), then with ard sdot.
+// fast != 0 rounds the second operand of each K^-1 product to TF32.
 int gpx_logml_grad(const float* li, int64_t ldli, const float* x, int d,
                    const float* alpha, int n, const int* table, int n_terms,
-                   const float* params, int n_params, int ard,
+                   const float* params, int n_params, int ard, int fast,
                    float* partials, float* out, void* stream) {
   const int n_out = n_params + 2 + (ard ? d : 0);
   if (n % QUAD || n_terms < 1 || n_terms > GPX_MAX_TERMS ||
@@ -188,8 +193,13 @@ int gpx_logml_grad(const float* li, int64_t ldli, const float* x, int d,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = gpx::tf32::aligned(li, ldli);
-  auto go = vec ? (ard ? &launch<true, true> : &launch<true, false>)
-                : (ard ? &launch<false, true> : &launch<false, false>);
+  decltype(&launch<true, true, 3>) go;
+  if (fast)
+    go = vec ? (ard ? &launch<true, true, 2> : &launch<true, false, 2>)
+             : (ard ? &launch<false, true, 2> : &launch<false, false, 2>);
+  else
+    go = vec ? (ard ? &launch<true, true, 3> : &launch<true, false, 3>)
+             : (ard ? &launch<false, true, 3> : &launch<false, false, 3>);
   const int err = go(li, ldli, x, d, alpha, n, table, n_terms, params,
                      n_params, n_out, partials, s);
   if (err != cudaSuccess) return err;

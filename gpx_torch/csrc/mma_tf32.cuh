@@ -14,6 +14,9 @@
 //   lo*hi + hi*lo + hi*hi, small terms first, by
 //   mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32; the dropped terms are
 //   2^-22 of the product.
+// - PASSES = 2 (the fast leg, gpx's _dot_bf16x2): A keeps its split and B
+//   only its hi part, lo*hi + hi*hi, so each product is A times B rounded
+//   to TF32 (2^-11 relative) at two MMAs per step instead of three.
 // - The tensor core's f32 accumulation truncates, so the accumulator holds
 //   one slab of SLAB_TILES * BK = 64 k, then every accumulator of the block
 //   folds into a per-entry float-float sum by an exact TwoSum whose error
@@ -196,6 +199,26 @@ __device__ __forceinline__ void frag_a_mmajor(const float* as, int row0,
   split(q[T::NS + 8], ah[3], al[3]);
 }
 
+// One 8-deep k step of fragment row mi into d: lo*hi + hi*lo + hi*hi
+// (PASSES = 3) or lo*hi + hi*hi with B's lo dropped (PASSES = 2), small
+// terms first
+template <class T, int PASSES>
+__device__ __forceinline__ void step_mmas(float (&d)[T::NI][4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[T::NI][2],
+                                          const uint32_t (&bl)[T::NI][2]) {
+  static_assert(PASSES == 2 || PASSES == 3, "2 or 3 passes");
+#pragma unroll
+  for (int ni = 0; ni < T::NI; ++ni) mma(d[ni], al, bh[ni]);
+  if (PASSES == 3) {
+#pragma unroll
+    for (int ni = 0; ni < T::NI; ++ni) mma(d[ni], ah, bl[ni]);
+  }
+#pragma unroll
+  for (int ni = 0; ni < T::NI; ++ni) mma(d[ni], ah, bh[ni]);
+}
+
 // The k loop of one block tile over [k_lo, k_hi): the ring, the MMAs and
 // the slab folds. `load(stage, k0)` issues the copies of the k-tile at k0
 // into ring stage `stage`; the A block of a stage comes first, its B block
@@ -203,7 +226,8 @@ __device__ __forceinline__ void frag_a_mmajor(const float* as, int row0,
 // On return every copy has landed; the entry of fragment element q of
 // (mi, ni), row wr + 16 mi + g + 8 (q / 2), column wc + 8 ni + 2 t + q % 2,
 // is sum + acc.
-template <class T, bool A_MMAJOR, bool B_KMAJOR, bool STEP_ROUND, class Load>
+template <class T, bool A_MMAJOR, bool B_KMAJOR, bool STEP_ROUND, int PASSES,
+          class Load>
 __device__ __forceinline__ void mainloop(const float* smem, Load&& load,
                                          int k_lo, int k_hi, int wr, int wc,
                                          float (&acc)[T::MI][T::NI][4],
@@ -248,6 +272,7 @@ __device__ __forceinline__ void mainloop(const float* smem, Load&& load,
           x0 = q[0];
           x1 = q[T::NS];
         }
+        // with PASSES = 2 the lo parts are never read: no registers, no ops
         split(x0, bh[ni][0], bl[ni][0]);
         split(x1, bh[ni][1], bl[ni][1]);
       }
@@ -260,24 +285,14 @@ __device__ __forceinline__ void mainloop(const float* smem, Load&& load,
           frag_a_kmajor<T>(as, wr + mi * 16, ks, ah, al);
         if (STEP_ROUND) {
           float st[T::NI][4] = {};
-#pragma unroll
-          for (int ni = 0; ni < T::NI; ++ni) mma(st[ni], al, bh[ni]);
-#pragma unroll
-          for (int ni = 0; ni < T::NI; ++ni) mma(st[ni], ah, bl[ni]);
-#pragma unroll
-          for (int ni = 0; ni < T::NI; ++ni) mma(st[ni], ah, bh[ni]);
+          step_mmas<T, PASSES>(st, ah, al, bh, bl);
 #pragma unroll
           for (int ni = 0; ni < T::NI; ++ni)
 #pragma unroll
             for (int q = 0; q < 4; ++q)
               acc[mi][ni][q] = __fadd_rn(acc[mi][ni][q], st[ni][q]);
         } else {
-#pragma unroll
-          for (int ni = 0; ni < T::NI; ++ni) mma(acc[mi][ni], al, bh[ni]);
-#pragma unroll
-          for (int ni = 0; ni < T::NI; ++ni) mma(acc[mi][ni], ah, bl[ni]);
-#pragma unroll
-          for (int ni = 0; ni < T::NI; ++ni) mma(acc[mi][ni], ah, bh[ni]);
+          step_mmas<T, PASSES>(acc[mi], ah, al, bh, bl);
         }
       }
     }

@@ -15,6 +15,12 @@
 // C may alias A0 element for element (each element is read and written by
 // the same thread).
 //
+// fast (gpx's trmm(fast=True), _dot_bf16x2): the right operand B is
+// rounded to TF32 and the left one kept whole, two MMAs a step
+// (mma_tf32.cuh, PASSES = 2). Only chol_inv's outermost M21 takes it, in
+// modes 0 and 1 (right operand N-major), so only those instances exist;
+// syrk_lower and mode 2 stay 3-pass.
+//
 // Bound on an H100 SXM: operations. At 8192^2 trmm does n^3 useful FLOPs
 // (the triangle halves 2 n^3) and syrk_lower n^2 k. In 3xTF32 that is
 // 3 n^3 tensor-core FLOPs at 494.7 TFLOP/s dense TF32: 3.33 ms; the same
@@ -65,7 +71,7 @@ struct Args {
 
 // One output tile per block. SYRK: C = A0 - a a^T on i >= j (b is a);
 // else trmm `mode`. B_KMAJOR: the right operand is read as b[j * ldb + k].
-template <class T, bool B_KMAJOR, bool SYRK, bool VEC>
+template <class T, bool B_KMAJOR, bool SYRK, bool VEC, int PASSES>
 __global__ void __launch_bounds__(T::THREADS, 1) product_kernel(Args p) {
   extern __shared__ __align__(16) float smem[];
   int bi, bj;
@@ -105,7 +111,8 @@ __global__ void __launch_bounds__(T::THREADS, 1) product_kernel(Args p) {
   const int wc = (warp % T::WN) * T::NI * 8;   // and first column
 
   float acc[T::MI][T::NI][4], sum[T::MI][T::NI][4];
-  mainloop<T, false, B_KMAJOR, false>(smem, load, k_lo, k_hi, wr, wc, acc, sum);
+  mainloop<T, false, B_KMAJOR, false, PASSES>(smem, load, k_lo, k_hi, wr, wc,
+                                              acc, sum);
 
   // fragment element q of (mi, ni): row g + 8 (q / 2), column 2 t + q % 2
 #pragma unroll
@@ -137,10 +144,10 @@ int sm_count() {
   return n;
 }
 
-template <class T, bool B_KMAJOR, bool SYRK, bool VEC>
+template <class T, bool B_KMAJOR, bool SYRK, bool VEC, int PASSES>
 int launch_vec(const Args& p, cudaStream_t s) {
   static bool attr = false;
-  auto kern = product_kernel<T, B_KMAJOR, SYRK, VEC>;
+  auto kern = product_kernel<T, B_KMAJOR, SYRK, VEC, PASSES>;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
@@ -153,12 +160,12 @@ int launch_vec(const Args& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <class T, bool B_KMAJOR, bool SYRK>
+template <class T, bool B_KMAJOR, bool SYRK, int PASSES = 3>
 int launch(Args p, bool vec, cudaStream_t s) {
   p.tiles_m = (p.m + T::BM - 1) / T::BM;
   p.tiles_n = (p.n + T::BN - 1) / T::BN;
-  return vec ? launch_vec<T, B_KMAJOR, SYRK, true>(p, s)
-             : launch_vec<T, B_KMAJOR, SYRK, false>(p, s);
+  return vec ? launch_vec<T, B_KMAJOR, SYRK, true, PASSES>(p, s)
+             : launch_vec<T, B_KMAJOR, SYRK, false, PASSES>(p, s);
 }
 
 // 128-wide tiles from 12 waves of them on; below that the 64-wide tiles'
@@ -175,13 +182,19 @@ extern "C" {
 
 // C = op(A, B) for trmm `mode`; A is the left operand (B in the right
 // modes, L in left_lower), B the right one. M x N output, K contraction.
+// fast != 0 rounds B to TF32 (modes 0 and 1 only).
 int gpx_trmm(const float* A, int64_t lda, const float* B, int64_t ldb,
              float* C, int64_t ldc, int M, int N, int K, int mode, float sign,
-             void* stream) {
+             int fast, void* stream) {
   const Args p{A, lda, B, ldb, C, ldc, nullptr, 0, M, N, K, mode, 0, 0, sign};
   const bool vec = aligned(A, lda) && aligned(B, ldb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool big = big_tiles(M, N, false);
+  if (fast) {
+    if (mode == 2) return (int)cudaErrorInvalidValue;
+    return big ? launch<Big, false, false, 2>(p, vec, s)
+               : launch<Small, false, false, 2>(p, vec, s);
+  }
   if (mode == 2)
     return big ? launch<Big, true, false>(p, vec, s)
                : launch<Small, true, false>(p, vec, s);

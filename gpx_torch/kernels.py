@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from gpx_torch import bijectors as bij
 from gpx_torch._device import as_tensor
 from gpx_torch._module import FieldModule
 
@@ -66,6 +67,28 @@ class Kernel(FieldModule):
         """True when the CUDA kernels' term table evaluates this kernel."""
         return False
 
+    def evaluate(self, d):
+        """The kernel at (non-squared) distance ``d``: the reference's
+        ``Double => Double`` covariance function
+        (KernelFunction.scala:47-55)."""
+        d = torch.as_tensor(d)
+        return self.evaluate_r2(d * d)
+
+    def variance(self, n: int, dtype=None):
+        """The kernel at distance zero, broadcast to ``(n,)`` (the ``kyy``
+        of Predict.scala:78), on the kernel's device, in ``dtype`` or its
+        hyperparameters' type. Stationary kernels only; :meth:`diag` in
+        general."""
+        leaf = next(iter(self.buffers()))
+        return self.evaluate_r2(torch.zeros(n, dtype=dtype or leaf.dtype,
+                                            device=leaf.device))
+
+    def bijectors(self):
+        """The same kernel with a :class:`gpx_torch.bijectors.Bijector` in
+        every leaf slot (walked by :func:`gpx_torch.params.leaves` in the
+        order of its tensors)."""
+        raise NotImplementedError
+
     def diag(self, x, dtype=None):
         """``k(x_i, x_i)`` per point."""
         from gpx_torch.ops.distance import as_locations
@@ -105,6 +128,9 @@ class SquaredExponential(Kernel):
 
     def evaluate_r2(self, r2):
         return self.h * torch.exp(-r2 / (self.sigma * self.sigma))
+
+    def bijectors(self):
+        return SquaredExponential(h=bij.positive, sigma=bij.positive)
 
     @property
     def cuda_supported(self) -> bool:
@@ -157,6 +183,9 @@ class Matern(Kernel):
     def cuda_supported(self) -> bool:
         return self._half_integer_p is not None
 
+    def bijectors(self):
+        return Matern(sigma=bij.positive, l=bij.positive, nu=self.nu)
+
 
 class White(Kernel):
     """``sigma`` where the distance is exactly zero, else 0 — for any zero
@@ -169,6 +198,9 @@ class White(Kernel):
 
     def evaluate_r2(self, r2):
         return torch.where(r2 == 0.0, self.sigma, torch.zeros_like(r2))
+
+    def bijectors(self):
+        return White(sigma=bij.positive)
 
     @property
     def cuda_supported(self) -> bool:
@@ -188,6 +220,10 @@ class RationalQuadratic(Kernel):
             -self.alpha
         )
 
+    def bijectors(self):
+        return RationalQuadratic(h=bij.positive, alpha=bij.positive,
+                                 l=bij.positive)
+
     @property
     def cuda_supported(self) -> bool:
         return True
@@ -205,6 +241,9 @@ class Periodic(Kernel):
         d = _safe_dist(r2)
         s = torch.sin(math.pi * d / self.period)
         return self.h * torch.exp(-2.0 * (s * s) / (self.l * self.l))
+
+    def bijectors(self):
+        return Periodic(h=bij.positive, period=bij.positive, l=bij.positive)
 
     @property
     def cuda_supported(self) -> bool:
@@ -228,6 +267,9 @@ class Linear(Kernel):
 
     def evaluate_xx(self, x1, x2, r2):
         return self.v * (x1 @ x2.T) + self.c
+
+    def bijectors(self):
+        return Linear(v=bij.positive, c=bij.positive)
 
 
 class Ard(Kernel):
@@ -253,6 +295,9 @@ class Ard(Kernel):
         r2w = (sq_distances(x1 * s, exact=exact) if x1 is x2
                else sq_distances(x1 * s, x2 * s, exact=exact))
         return self.base.evaluate_r2(torch.clamp_min(r2w, 0.0))
+
+    def bijectors(self):
+        return Ard(base=self.base.bijectors(), ell=bij.positive)
 
 
 class Sum(Kernel):
@@ -280,6 +325,9 @@ class Sum(Kernel):
     @property
     def pallas_safe(self) -> bool:
         return all(k.pallas_safe for k in self.kernels)
+
+    def bijectors(self):
+        return Sum(tuple(k.bijectors() for k in self.kernels))
 
     @property
     def cuda_supported(self) -> bool:
@@ -313,6 +361,9 @@ class Product(Kernel):
     @property
     def pallas_safe(self) -> bool:
         return all(k.pallas_safe for k in self.kernels)
+
+    def bijectors(self):
+        return Product(tuple(k.bijectors() for k in self.kernels))
 
     @property
     def cuda_supported(self) -> bool:

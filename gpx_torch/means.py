@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from gpx_torch import bijectors as bij
 from gpx_torch._device import as_tensor
 from gpx_torch._module import FieldModule
 
@@ -13,12 +14,19 @@ class MeanFunction(FieldModule):
     def forward(self, x):
         raise NotImplementedError
 
+    def bijectors(self):
+        """The same mean with a bijector in every leaf slot."""
+        raise NotImplementedError
+
 
 class Zero(MeanFunction):
     _fields = ()
 
     def forward(self, x):
         return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+    def bijectors(self):
+        return Zero()
 
 
 class Plane(MeanFunction):
@@ -31,6 +39,9 @@ class Plane(MeanFunction):
 
     def forward(self, x):
         return self.beta[0] + x @ self.beta[1:]
+
+    def bijectors(self):
+        return Plane(beta=bij.identity)
 
 
 def plane(beta, *, device=None, dtype=None) -> Plane:

@@ -16,6 +16,11 @@ route, as in the JAX package, and ``-inf`` from
 solves alpha and a Rademacher probe block through that factor, and
 estimates the trace term of the gradient with the probe kernel, deflated by
 a pivoted-Cholesky basis (:func:`_logml_value_and_grad_hybrid`).
+
+:func:`log_marginal_likelihood_analytic_vjp` and
+:func:`log_marginal_likelihood_hybrid_vjp` package these as scalar
+functions whose autograd gradient is the analytic (or hybrid) one: the
+samplers of :mod:`gpx_torch.infer` differentiate through them.
 """
 
 from __future__ import annotations
@@ -106,9 +111,15 @@ def logml_value_and_grad(params: Parameters, x, y, *,
     device; ``None`` is a generator seeded 0, so repeated calls agree),
     deflated by a rank-``deflate`` basis (``None``: ``min(64, n // 32)``).
     It needs a stationary, Pallas-safe kernel; on the card, one the CUDA
-    term table holds. ``fast_gradients`` is not ported yet."""
-    if fast_gradients:
-        raise NotImplementedError("fast_gradients is not ported yet")
+    term table holds.
+
+    ``fast_gradients=True`` runs the fused route's outermost M21 and its
+    gradient contraction on the 2-pass leg (``chol_inv(fast=True)``,
+    ``logml_kernel_grads(fast=True)``): about 2^-11 relative per product,
+    and the value loosens with the logdet correction that shares it. Off
+    the fused route (every CPU tensor) it is ignored and the result is
+    bitwise the ``False`` one, as in the JAX package; ``method="hybrid"``
+    and ``"autodiff"`` ignore it too."""
     full_fp32()
     if method == "hybrid":
         _hybrid_gate(params.kernel)
@@ -128,7 +139,8 @@ def logml_value_and_grad(params: Parameters, x, y, *,
         return value.detach(), unflatten(params, grads)
     if method != "analytic":
         raise ValueError(f"unknown method: {method}")
-    return _logml_value_and_grad_analytic(params, x, y, nugget)
+    return _logml_value_and_grad_analytic(params, x, y, nugget,
+                                          fast_gradients=fast_gradients)
 
 
 def _split_ard(kernel):
@@ -159,8 +171,9 @@ def _pad_spd(k, pad: int):
 
 
 def _fused_logml_core(kernel, x, r, k_val, nugget: float, *,
-                      base: int = LEAF):
-    """The fused leg at any ``n``: returns ``(value, d_kernel, alpha)``.
+                      base: int = LEAF, fast: bool = False):
+    """The fused leg at any ``n``: returns ``(value, d_kernel, alpha)``;
+    ``fast`` takes the 2-pass legs of ``chol_inv`` and the gradient kernel.
 
     ``n`` is padded to a multiple of the port's tiles (the gradient kernel's
     64 and the leaf size ``base``) with :func:`_pad_spd`; the residual pads
@@ -181,7 +194,7 @@ def _fused_logml_core(kernel, x, r, k_val, nugget: float, *,
     else:
         k_mat, r_vec, x_c = k_val, r, x
 
-    l, l_inv = chol_inv(k_mat, base=base)
+    l, l_inv = chol_inv(k_mat, base=base, fast=fast)
     del l
     # alpha through the explicit inverse plus one refinement step: the
     # inverse alone is backward-unstable, one K-matvec correction restores
@@ -197,10 +210,12 @@ def _fused_logml_core(kernel, x, r, k_val, nugget: float, *,
         # zero the pad rows in place: l_inv is not read again after this
         l_inv[n:] = 0.0
     if ell is None:
-        d_kernel, (tkw, trw) = logml_kernel_grads(kernel, x_c, alpha, l_inv)
+        d_kernel, (tkw, trw) = logml_kernel_grads(kernel, x_c, alpha, l_inv,
+                                                  fast=fast)
     else:
         d_base, (tkw, trw), sdot = logml_kernel_grads(
-            base_kernel, x_c / ell.to(x_c.dtype), alpha, l_inv, ard=True)
+            base_kernel, x_c / ell.to(x_c.dtype), alpha, l_inv, ard=True,
+            fast=fast)
         d_kernel = Ard(base=d_base, ell=-2.0 * sdot / ell.to(sdot.dtype))
 
     # first-order logdet correction with W_hat = l_inv^T l_inv:
@@ -210,7 +225,8 @@ def _fused_logml_core(kernel, x, r, k_val, nugget: float, *,
     return value, d_kernel, alpha[:n]
 
 
-def _logml_value_and_grad_analytic(params: Parameters, x, y, nugget: float):
+def _logml_value_and_grad_analytic(params: Parameters, x, y, nugget: float,
+                                   *, fast_gradients: bool = False):
     x, y = check_xy(x, y)
     n = x.shape[0]
     ms = [t.detach().requires_grad_() for t in leaves(params.mean)]
@@ -221,7 +237,7 @@ def _logml_value_and_grad_analytic(params: Parameters, x, y, nugget: float):
     if _fused_gate(params.kernel, x):
         k_val = gram(params.kernel, x, nugget=nugget)
         value, d_kernel, alpha = _fused_logml_core(
-            params.kernel, x, r, k_val, nugget)
+            params.kernel, x, r, k_val, nugget, fast=fast_gradients)
         d_kernel = unflatten(params.kernel, [
             g.to(leaf.dtype) for g, leaf in
             zip(leaves(d_kernel), leaves(params.kernel))
@@ -384,3 +400,82 @@ def _hybrid_deflation(kernel, x_c, z, solve, n: int, deflate: int | None):
     u_aug = torch.cat([u_res * (s_aug / s), (2.0 * s_aug) * y_t], dim=1)
     z_aug = torch.cat([z, q], dim=1)
     return u_plain, (u_aug, z_aug)
+
+
+def log_marginal_likelihood_analytic_vjp(x, y, *,
+                                         nugget: float = LOGML_NUGGET,
+                                         fast_gradients: bool = False):
+    """A ``params -> logML`` scalar function whose autograd gradient is the
+    analytic one (:func:`logml_value_and_grad`, the fused route on the
+    card) instead of autograd through the Cholesky: each leapfrog step of
+    a sampler then makes one fused logML + gradient call. First order
+    only. A call whose leaves need no gradient (or under ``no_grad``)
+    returns the plain Cholesky value (:func:`log_marginal_likelihood`), as
+    the JAX package's ``primal=`` does. ``fast_gradients`` runs the 2-pass
+    legs (:func:`logml_value_and_grad`). ``x`` and ``y`` go to the card
+    unless they are tensors elsewhere."""
+    x, y = check_xy(x, y)
+    return _scalar_vjp(
+        lambda p: _logml_value_and_grad_analytic(
+            p, x, y, nugget, fast_gradients=fast_gradients),
+        primal=lambda p: log_marginal_likelihood(p, x, y, nugget=nugget))
+
+
+def log_marginal_likelihood_hybrid_vjp(x, y, *, nugget: float = LOGML_NUGGET,
+                                       probes: int = 64, probe_key=None,
+                                       deflate: int | None = None):
+    """A ``params -> logML`` scalar whose value and gradient come from the
+    hybrid (``method="hybrid"``). The probe block is drawn once, from a
+    copy of ``probe_key``'s state (``None``: a generator seeded 0 on
+    ``x``'s device), so the function is a deterministic map of the
+    parameters and ``probe_key`` itself is not advanced. Same gate as
+    ``method="hybrid"``, checked at the call."""
+    x, y = check_xy(x, y)
+    gen = torch.Generator(device=x.device)
+    if probe_key is None:
+        gen.manual_seed(0)
+    else:
+        gen.set_state(probe_key.get_state())
+    z = torch.randint(0, 2, (x.shape[0], probes), generator=gen,
+                      device=x.device).mul_(2).sub_(1)
+
+    def value_and_grad(p):
+        full_fp32()
+        _hybrid_gate(p.kernel)
+        return _logml_value_and_grad_hybrid(p, x, y, nugget, z=z,
+                                            deflate=deflate)
+
+    return _scalar_vjp(value_and_grad)
+
+
+class _ScalarVJP(torch.autograd.Function):
+    """``value`` forward over the flat leaves; backward ``grad * ct`` from
+    the gradient tree the forward computed."""
+
+    @staticmethod
+    def forward(ctx, value_and_grad, params, *flat):
+        # flat are params' own leaves, passed so that autograd sees them
+        value, grads = value_and_grad(params)
+        ctx.grads = leaves(grads)
+        return value.detach()
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (None, None, *(g * ct for g in ctx.grads))
+
+
+def _scalar_vjp(value_and_grad_fn, *, primal=None):
+    """Package ``params -> (value, grads)`` as a scalar function of a
+    parameter tree whose autograd gradient is ``grads`` (first order only).
+    ``primal`` (default: the value of ``value_and_grad_fn``) is what a call
+    computes when no leaf needs a gradient."""
+
+    def f(params):
+        flat = leaves(params)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+            return _ScalarVJP.apply(value_and_grad_fn, params, *flat)
+        if primal is not None:
+            return primal(params)
+        return value_and_grad_fn(params)[0]
+
+    return f

@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+LOGS: dict[str, str] = {}  # nvcc's output per source built by this process
 
 
 def _nvcc() -> str:
@@ -66,6 +67,7 @@ def build_all(verbose: bool = False) -> float:
     failed = []
     for name, (proc, tmp, target) in procs.items():
         log, _ = proc.communicate()
+        LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu ---\n{log}")
             continue

@@ -17,6 +17,10 @@ memory holds at most a 128^2 tile and its inverse, so the recursion here
 goes on down to leaves of at most :data:`LEAF` (one CTA each), launched in
 place on their block of the source (:func:`chol_inv_tile_off`).
 
+``chol_inv(a, fast=True)`` runs the outermost M21 (two ``trmm``s) on the
+products' 2-pass leg; ``L`` and every other block of ``M`` stay bitwise
+those of ``fast=False``.
+
 ``chol_inv(a, spine=True)`` is the factorization of the hybrid gradient: it
 skips the M21 assembly along the trailing spine, and the solves go through
 :func:`spine_solve_lower` / :func:`spine_solve_lower_t`.
@@ -104,7 +108,7 @@ def _split(n: int) -> int:
     return n // 2 if (n & (n - 1)) == 0 else 1 << (n.bit_length() - 1)
 
 
-def chol_inv(a, *, base: int = LEAF, spine: bool = False):
+def chol_inv(a, *, base: int = LEAF, spine: bool = False, fast: bool = False):
     """``(L, L^-1)`` of an SPD matrix, both lower triangular with exact
     zeros above the diagonal; only the lower triangle of ``a`` is read.
 
@@ -118,25 +122,39 @@ def chol_inv(a, *, base: int = LEAF, spine: bool = False):
     in every Schur child: the blocks no later step of the factorization
     reads. They stay exactly zero; ``L`` and every other block of ``M`` are
     bitwise those of ``spine=False``. Solve with :func:`spine_solve_lower`
-    and :func:`spine_solve_lower_t` (same ``base``)."""
+    and :func:`spine_solve_lower_t` (same ``base``).
+
+    ``fast=True`` (gpx's ``chol_inv(fast=True)``) takes the top level's M21
+    assembly, the one block no factor step reads, through ``trmm``'s 2-pass
+    leg; it never passes to the children, whose M blocks feed the factor
+    (gpx measured a 2-pass factor, and 2-pass M21 at every level, to NaN at
+    N = 16k). ``L`` and the other blocks of ``M`` are bitwise those of
+    ``fast=False``. For ``n <= base`` the leaf runs as it is: it is FP32 on
+    the CUDA cores and has no split to drop. ``spine`` with ``fast`` raises
+    ``ValueError``, as in gpx."""
     n = a.shape[-1]
     if a.ndim != 2 or tuple(a.shape) != (n, n) or n == 0:
         raise ValueError(f"chol_inv needs a square matrix: {tuple(a.shape)}")
     if base & (base - 1) or not 64 <= base <= LEAF:
         raise ValueError(f"base must be a power of 2 in [64, {LEAF}]: {base}")
+    if spine and fast:
+        raise ValueError("spine=True skips the M21 chain that fast=True "
+                         "loosens: the two do not combine")
     l = torch.zeros_like(a)
     m = torch.zeros_like(a)
-    _rec(a, l, m, 0, n, base, spine)
+    _rec(a, l, m, 0, n, base, spine, fast)
     return l, m
 
 
-def _rec(src, l, m, off: int, t: int, base: int, spine: bool = False):
+def _rec(src, l, m, off: int, t: int, base: int, spine: bool = False,
+         fast: bool = False):
     """Factor the ``(t, t)`` block at ``(off, off)`` of ``src`` and write its
     L and M blocks into ``l`` and ``m`` at the same place, in place.
     ``src`` is ``a`` along the leading chain and ``l`` for a Schur child,
     whose complement the parent's syrk deposited there. ``spine`` passes to
     the Schur child only: the leading child's full inverse feeds
-    ``L21 = A21 M11^T``."""
+    ``L21 = A21 M11^T``. ``fast`` (this level's M21 on the 2-pass leg)
+    passes to no child."""
     if t <= base:
         blk = slice(off, off + t)
         chol_inv_tile_off(src, off, t, l_out=l[blk, blk], m_out=m[blk, blk])
@@ -150,8 +168,8 @@ def _rec(src, l, m, off: int, t: int, base: int, spine: bool = False):
     syrk_lower(src[s2, s2], l21, out=l[s2, s2])
     _rec(l, l, m, off + h, t - h, base, spine)
     if not spine:
-        t1 = trmm(l21, m[s1, s1], mode="right_lower", neg=True)
-        trmm(t1, m[s2, s2], mode="left_lower", out=m[s2, s1])
+        t1 = trmm(l21, m[s1, s1], mode="right_lower", neg=True, fast=fast)
+        trmm(t1, m[s2, s2], mode="left_lower", fast=fast, out=m[s2, s1])
 
 
 def spine_solve_lower(l, m, b, *, base: int = LEAF):

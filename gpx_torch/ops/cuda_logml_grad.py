@@ -11,7 +11,9 @@ Hutchinson estimate ``(U Z^T + Z U^T) / (2 s)`` from a probe block ``Z``
 and ``U = K^-1 Z``. With ``ard=True`` the coordinates are the ARD-scaled
 ``u = x / ell`` and both also return ``sdot_d = sum_ij W_ij K'(r2_ij)
 (u_id - u_jd)^2``, from which the caller forms the lengthscale gradients
-``-2 sdot / ell``.
+``-2 sdot / ell``. ``logml_kernel_grads(fast=True)`` is gpx's 2-pass leg:
+the second operand of each ``K^-1`` product, ``L^-1``'s column block j,
+is rounded to TF32 and the first kept whole.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from gpx_torch.kernels import has_white
 from gpx_torch.ops import _build
+from gpx_torch.ops.cuda_trmm import round_tf32
 from gpx_torch.ops.distance import as_locations, sq_distances
 from gpx_torch.ops.terms import COLS, table_tensors
 from gpx_torch.params import leaves, unflatten
@@ -27,8 +30,8 @@ from gpx_torch.params import leaves, unflatten
 TILE = 64  # csrc/tile_core.cuh: BM
 MAX_OUTPUTS = 128  # the JAX package's (1, 128) output tile
 _ARGS = [_build.P, _build.L, _build.P, _build.I, _build.P, _build.I,
-         _build.P, _build.I, _build.P, _build.I, _build.I, _build.P, _build.P,
-         _build.P]
+         _build.P, _build.I, _build.P, _build.I, _build.I, _build.I, _build.P,
+         _build.P, _build.P]
 _PROBE_ARGS = [_build.P, _build.L, _build.P, _build.L, _build.I, _build.P,
                _build.I, _build.P, _build.I, _build.P, _build.I, _build.P,
                _build.I, _build.I, _build.P, _build.P, _build.P]
@@ -64,9 +67,17 @@ def _contract_reference(kernel, x, alpha, kinv, ard: bool):
     return out
 
 
-def logml_kernel_grads_reference(kernel, x, alpha, l_inv, *, ard: bool = False):
-    """Plain version: forms ``K^-1`` and ``W`` explicitly."""
-    return _contract_reference(kernel, x, alpha, l_inv.T @ l_inv, ard)
+def logml_kernel_grads_reference(kernel, x, alpha, l_inv, *, ard: bool = False,
+                                 fast: bool = False):
+    """Plain version: forms ``K^-1`` and ``W`` explicitly. With ``fast`` its
+    entry (i, j), i >= j, is ``sum_k l_inv[k, i] round_tf32(l_inv[k, j])``
+    (:func:`round_tf32`), mirrored above the diagonal, as the kernel reads
+    it."""
+    if not fast:
+        return _contract_reference(kernel, x, alpha, l_inv.T @ l_inv, ard)
+    p = l_inv.T @ round_tf32(l_inv)
+    kinv = torch.tril(p) + torch.tril(p, -1).T
+    return _contract_reference(kernel, x, alpha, kinv, ard)
 
 
 def _prepare(kernel, x, alpha, mats, ard):
@@ -97,15 +108,16 @@ def _unpack(kernel, out, ard):
     return res + (out[n_params + 2:],) if ard else res
 
 
-def logml_kernel_grads(kernel, x, alpha, l_inv, *, ard: bool = False):
+def logml_kernel_grads(kernel, x, alpha, l_inv, *, ard: bool = False,
+                       fast: bool = False):
     """``(d_kernel, (tkw, trw))``: the logML gradient for every kernel
     hyperparameter (a tree shaped like ``kernel``), ``tkw = tr(W_hat K)``
     with K taken without the nugget, and ``trw = tr(W_hat)``, where
     ``W_hat = l_inv^T l_inv``; with ``ard=True`` (``x`` the ARD-scaled
     coordinates) ``(d_kernel, (tkw, trw), sdot)``, ``sdot`` of shape
-    ``(D,)``. At most 128 outputs (hyperparameters + 2 + D). On the card
-    ``n`` must be a multiple of :data:`TILE`. On CPU tensors this is the
-    plain version."""
+    ``(D,)``. At most 128 outputs (hyperparameters + 2 + D). ``fast`` runs
+    the ``K^-1`` products on the 2-pass leg. On the card ``n`` must be a
+    multiple of :data:`TILE`. On CPU tensors this is the plain version."""
     x = as_locations(x)
     n = x.shape[0]
     if tuple(l_inv.shape) != (n, n) or tuple(alpha.shape) != (n,):
@@ -113,21 +125,24 @@ def logml_kernel_grads(kernel, x, alpha, l_inv, *, ard: bool = False):
                          f"{tuple(alpha.shape)} for n = {n}")
     _check_outputs(kernel, x, ard)
     if x.device.type == "cpu":
-        return logml_kernel_grads_reference(kernel, x, alpha, l_inv, ard=ard)
+        return logml_kernel_grads_reference(kernel, x, alpha, l_inv, ard=ard,
+                                            fast=fast)
     xc, table, params, partials, out = _prepare(kernel, x, alpha,
                                                 [(l_inv, "l_inv", 2)], ard)
     fn = _build.function("logml_grad", "gpx_logml_grad", _ARGS)
     status = fn(_build.ptr(l_inv), l_inv.stride(0), _build.ptr(xc),
                 xc.shape[1], _build.ptr(alpha), n, _build.ptr(table),
                 table.shape[0] // COLS, _build.ptr(params), params.shape[0],
-                int(ard), _build.ptr(partials), _build.ptr(out),
+                int(ard), int(fast), _build.ptr(partials), _build.ptr(out),
                 _build.stream(x.device))
     _build.check(status, "logml_kernel_grads")
     logml_kernel_grads.launches += 1
+    logml_kernel_grads.fast_launches += fast
     return _unpack(kernel, out, ard)
 
 
 logml_kernel_grads.launches = 0
+logml_kernel_grads.fast_launches = 0  # of them on the 2-pass leg
 
 
 def logml_probe_grads_reference(kernel, x, alpha, u, z, *, ard: bool = False):

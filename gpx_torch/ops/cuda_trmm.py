@@ -7,6 +7,12 @@ buffers and the kernels write into them in place (``out=``) — where the
 JAX package passed tile offsets (``b_off``/``l_off``/``a_off``) and
 assembled new arrays. ``L`` must hold exact zeros above its diagonal: the
 kernels skip its zero tiles but read the diagonal tiles whole.
+
+``fast=True`` is the port of gpx's 2-pass leg (``_dot_bf16x2``): the
+kernel's right operand (``l`` in ``right_lower``, ``b`` in
+``left_lower``) is rounded to TF32 and the left one kept whole, about
+2^-11 relative per product. ``chol_inv(fast=True)`` takes it for its
+outermost M21 only; ``right_lower_t`` and ``syrk_lower`` have no fast leg.
 """
 
 from __future__ import annotations
@@ -17,14 +23,27 @@ from gpx_torch.ops import _build
 
 MODES = {"right_lower": 0, "left_lower": 1, "right_lower_t": 2}
 _TRMM_ARGS = [_build.P, _build.L, _build.P, _build.L, _build.P, _build.L,
-              _build.I, _build.I, _build.I, _build.I, _build.F, _build.P]
+              _build.I, _build.I, _build.I, _build.I, _build.F, _build.I,
+              _build.P]
 _SYRK_ARGS = [_build.P, _build.L, _build.P, _build.L, _build.P, _build.L,
               _build.I, _build.I, _build.P]
 
 
-def _trmm_shape(b, l, mode):
+def round_tf32(t):
+    """``t`` rounded to TF32 as the kernels' split rounds it: on the float32
+    bits, to nearest with ties away from zero (the low 13 mantissa bits
+    cleared), returned in ``t``'s dtype."""
+    bits = t.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32).to(t.dtype)
+
+
+def _trmm_shape(b, l, mode, fast=False):
     if mode not in MODES:
         raise ValueError(f"unknown trmm mode: {mode}")
+    if fast and mode == "right_lower_t":
+        raise ValueError("fast=True is for right_lower and left_lower only")
     n = l.shape[0]
     if l.ndim != 2 or l.shape != (n, n) or b.ndim != 2:
         raise ValueError(f"trmm {mode}: l {tuple(l.shape)}, b {tuple(b.shape)}")
@@ -37,30 +56,35 @@ def _trmm_shape(b, l, mode):
     return (b.shape[0], n)
 
 
-def trmm_reference(b, l, *, mode: str, neg: bool = False):
-    """``b @ L`` / ``L @ b`` / ``b @ L^T`` with ``L = tril(l)``."""
-    _trmm_shape(b, l, mode)
+def trmm_reference(b, l, *, mode: str, neg: bool = False, fast: bool = False):
+    """``b @ L`` / ``L @ b`` / ``b @ L^T`` with ``L = tril(l)``; with
+    ``fast`` the right operand rounded to TF32 (:func:`round_tf32`) and the
+    product of full and rounded operands in the inputs' precision."""
+    _trmm_shape(b, l, mode, fast)
     lt = torch.tril(l)
     if mode == "right_lower":
-        c = b @ lt
+        c = b @ (round_tf32(lt) if fast else lt)
     elif mode == "left_lower":
-        c = lt @ b
+        c = lt @ (round_tf32(b) if fast else b)
     else:
         c = b @ lt.T
     return -c if neg else c
 
 
-def trmm(b, l, *, mode: str, neg: bool = False, out=None):
+def trmm(b, l, *, mode: str, neg: bool = False, fast: bool = False,
+         out=None):
     """``b @ l`` (``right_lower``), ``l @ b`` (``left_lower``) or
     ``b @ l.T`` (``right_lower_t``), ``l`` lower triangular ``(n, n)``;
     ``b`` is ``(m, n)`` in the right modes and ``(n, m)`` in
-    ``left_lower``. ``neg`` writes ``-C``. ``out`` (a matrix or a view)
-    receives the result in place; it must not overlap ``b`` or ``l``."""
-    shape = _trmm_shape(b, l, mode)
+    ``left_lower``. ``neg`` writes ``-C``; ``fast`` rounds the right
+    operand to TF32 (not in ``right_lower_t``). ``out`` (a matrix or a
+    view) receives the result in place; it must not overlap ``b`` or
+    ``l``."""
+    shape = _trmm_shape(b, l, mode, fast)
     if out is not None and tuple(out.shape) != shape:
         raise ValueError(f"out {tuple(out.shape)} for a {shape} product")
     if b.device.type == "cpu":
-        c = trmm_reference(b, l, mode=mode, neg=neg)
+        c = trmm_reference(b, l, mode=mode, neg=neg, fast=fast)
         return c if out is None else out.copy_(c)
     dev = b.device
     _build.require(b, "b", ndim=2, device=dev)
@@ -73,14 +97,16 @@ def trmm(b, l, *, mode: str, neg: bool = False, out=None):
     fn = _build.function("trmm", "gpx_trmm", _TRMM_ARGS)
     status = fn(_build.ptr(a_op), a_op.stride(0), _build.ptr(b_op),
                 b_op.stride(0), _build.ptr(out), out.stride(0), shape[0],
-                shape[1], k, MODES[mode], -1.0 if neg else 1.0,
+                shape[1], k, MODES[mode], -1.0 if neg else 1.0, int(fast),
                 _build.stream(dev))
     _build.check(status, f"trmm {mode}")
     trmm.launches += 1
+    trmm.fast_launches += fast
     return out
 
 
 trmm.launches = 0
+trmm.fast_launches = 0  # of them on the 2-pass leg
 
 
 def syrk_lower_reference(a, b):

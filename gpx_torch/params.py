@@ -4,7 +4,10 @@
 and :class:`Parameters` in the order ``jax.tree_util.tree_flatten`` gives for
 the JAX package's pytrees (``Parameters`` -> mean then kernel; ``Sum`` ->
 children in order; SE -> ``h``, ``sigma``; White -> ``sigma``), so a flat
-list of leaves means the same thing on both sides.
+list of leaves means the same thing on both sides. A bijector tree
+(``bijectors()``: the same classes with a bijector in each leaf slot) is
+walked the same way, so :func:`constrain` and :func:`unconstrain` pair
+its bijectors with a parameter tree's tensors leaf by leaf.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ class Parameters(FieldModule):
     def __init__(self, mean, kernel):
         super().__init__(mean=mean, kernel=kernel)
 
+    def bijectors(self) -> "Parameters":
+        return Parameters(mean=self.mean.bijectors(),
+                          kernel=self.kernel.bijectors())
+
 
 def _children(tree):
     for name in tree._fields:
@@ -29,7 +36,7 @@ def _children(tree):
 
 
 def _walk(tree, path, out):
-    if isinstance(tree, torch.Tensor):
+    if not isinstance(tree, FieldModule):  # a tensor, or a bijector
         out.append((path, tree))
         return
     for name, value in _children(tree):
@@ -40,8 +47,9 @@ def _walk(tree, path, out):
             _walk(value, f"{path}.{name}", out)
 
 
-def leaves(tree) -> list[torch.Tensor]:
-    """The hyperparameter tensors of ``tree``, in the JAX flatten order."""
+def leaves(tree) -> list:
+    """The hyperparameter tensors of ``tree`` (the bijectors of a bijector
+    tree), in the JAX flatten order."""
     out = []
     _walk(tree, "", out)
     return [leaf for _, leaf in out]
@@ -53,7 +61,7 @@ def unflatten(template, new_leaves):
     it = iter(new_leaves)
 
     def build(node):
-        if isinstance(node, torch.Tensor):
+        if not isinstance(node, FieldModule):
             return next(it)
         fields = {}
         for name, value in _children(node):
@@ -85,6 +93,34 @@ def from_array(template, flat):
     return unflatten(template, out)
 
 
+def unraveler(template):
+    """``(flat0, unravel)``: ``template`` as a flat tensor and the map from
+    such a tensor back to its structure."""
+    return to_array(template), lambda flat: from_array(template, flat)
+
+
+def constrain(bij_tree, u_tree):
+    """Map an unconstrained tree to the constrained domain, leaf by leaf."""
+    return unflatten(u_tree, [b.forward(u) for b, u in
+                              zip(leaves(bij_tree), leaves(u_tree))])
+
+
+def unconstrain(bij_tree, c_tree):
+    """Inverse of :func:`constrain`."""
+    return unflatten(c_tree, [b.inverse(c) for b, c in
+                              zip(leaves(bij_tree), leaves(c_tree))])
+
+
+def log_det_jacobian(bij_tree, u_tree):
+    """Total ``log |d constrain(u) / du|``: the change-of-variables term a
+    sampler on the unconstrained space adds to the log-posterior."""
+    u_leaves = leaves(u_tree)
+    total = torch.zeros((), dtype=u_leaves[0].dtype, device=u_leaves[0].device)
+    for b, u in zip(leaves(bij_tree), u_leaves):
+        total = total + torch.sum(b.log_det_jacobian(u))
+    return total
+
+
 def names(tree) -> list[str]:
     """Flat parameter names from field paths, one per scalar element —
     the same strings as the JAX package's ``gpx.params.names``."""
@@ -99,3 +135,8 @@ def names(tree) -> list[str]:
         else:
             out.extend(f"{base}_{i}" for i in range(n))
     return out
+
+
+def to_dict(tree) -> dict:
+    """Name -> value, one entry per scalar (diagnostics, CSV headers)."""
+    return dict(zip(names(tree), [float(v) for v in to_array(tree)]))

@@ -122,11 +122,14 @@ def test_numpy_round_trip():
 
 
 def test_unported_options_raise():
-    """``fast_gradients`` is not ported; ``method="hybrid"`` is
-    (tests/test_torch_hybrid.py), and an unknown method stays an error."""
+    """An unknown method stays an error. ``fast_gradients`` and
+    ``method="hybrid"`` are ported (tests/test_torch_fast.py,
+    tests/test_torch_hybrid.py): off the fused route the flag is ignored,
+    as in gpx, so it no longer raises."""
     _, tp = _pair()
-    x, y = torch.zeros(4, 1, dtype=torch.float64), torch.zeros(4, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        gp.logml_value_and_grad(tp, x, y, fast_gradients=True)
+    x = torch.linspace(-1.0, 1.0, 4, dtype=torch.float64)[:, None]
+    y = torch.zeros(4, dtype=torch.float64)
+    value, _ = gp.logml_value_and_grad(tp, x, y, fast_gradients=True)
+    assert torch.equal(value, gp.logml_value_and_grad(tp, x, y)[0])
     with pytest.raises(ValueError):
         gp.logml_value_and_grad(tp, x, y, method="exact")

@@ -4,6 +4,7 @@
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,3 +38,28 @@ def test_default_device_is_the_card():
             gt.se(1.0, 2.0)
         with pytest.raises(RuntimeError):
             gt.plane([0.0, 1.0])
+
+
+def test_sampler_entry_points_default_to_the_card():
+    """sample_hmc and the two VJPs put numpy x and y on the card: without
+    one they raise, with one the log-likelihood lands there."""
+    from gpx_torch.infer import sample_hmc
+    from gpx_torch.models import gp
+
+    x, y = np.linspace(-1.0, 1.0, 8)[:, None], np.zeros(8)
+    cpu = dict(device="cpu", dtype=torch.float64)
+    template = gt.Parameters(mean=gt.zero(),
+                             kernel=gt.se(1.0, 2.0, **cpu) + gt.white(0.5, **cpu))
+    vjps = (gp.log_marginal_likelihood_analytic_vjp,
+            gp.log_marginal_likelihood_hybrid_vjp)
+    if torch.cuda.is_available():
+        card = gt.params.unflatten(template, [t.cuda() for t in
+                                              gt.params.leaves(template)])
+        for make in vjps:
+            assert make(x, y)(card).device.type == "cuda"
+        return
+    for make in vjps:
+        with pytest.raises(RuntimeError):
+            make(x, y)
+    with pytest.raises(RuntimeError):
+        sample_hmc(0, x, y, template, lambda p: 0.0, 2, n_chains=1, eps=0.1)

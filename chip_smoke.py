@@ -34,8 +34,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    exact path on the same data, F2 through the hybrid, and a Gram that is
    not positive definite (NaN on both exact routes, -inf when safe);
 4. the matrix-free path (``phase_iterative``, the case of
-   ``examples/large_n.py``): the two matvec kernels against their plain
-   versions (SE + White and Matern 3/2 + White; every family timed),
+   ``examples/large_n.py``): the two matvec kernels against float64 and
+   against their plain TF32 versions (SE + White at R = 1, 8, 9, 256,
+   Matern 3/2 + White, a product, D = 2, 12 and 20, a repeated call
+   bitwise; every family timed),
    ``gp_iterative.logml_value_and_grad_iterative`` at N = 32,768
    (three seeds) against the dense float64 logML and against the same
    estimator in float64, one Matern 3/2 + White eval likewise,
@@ -68,6 +70,15 @@ phase 4 runs none of the factor's or the gradient's kernels.
 runs phase 1 and phase 3's SE + White cases (exact and hybrid) only. They
 use nothing that earlier trees of the port lack, so a copy of this script
 beside an earlier tree's ``gpx_torch`` times both trees alike.
+
+    python3 chip_smoke.py --matvec-times
+
+runs phase 1 and the matvec kernels' times (R = 1, 8, 9, 256; every
+family; N = 131,072; the cross product), the iterative logML's and
+fit_iterative's ms/eval only, in one ``matvec_times`` JSON line and with
+no ``kernels`` or ``ok`` line. It uses nothing that earlier trees of the
+port lack, so a copy of this script beside an earlier tree's
+``gpx_torch`` times both trees alike.
 
     python3 chip_smoke.py --sampler-only
 
@@ -1424,16 +1435,50 @@ def _count(torch, fn):
     return out, counts
 
 
+# Leaf terms of each family kernel (_families), for the matvec's FP32 bound
+TERMS = {"se*periodic+white": 3}
+
+
+def _matvec_bound(n1, n2, d, r, name="se+white"):
+    """The least time of one matvec on the units that do its work: the
+    product, 4 x 2 N1 N2 R on the tensor cores (four TF32 products of
+    hi/lo splits); the exponentials (and square roots, logarithms) on
+    the special-function units; the distance and term algebra on the CUDA
+    cores in FP32 (a difference and a multiply-add per dimension, a scale
+    and a multiply-add per leaf term: 3 D + 2 T per entry); the bytes (x1,
+    x2, V read once, the output written once)."""
+    entries = float(n1) * n2
+    return bound_ms(tf32_flops=8.0 * entries * r,
+                    exps=float(SFU_PER_ENTRY[name]) * entries,
+                    flops=(3.0 * d + 2.0 * TERMS.get(name, 2)) * entries,
+                    nbytes=4.0 * ((n1 + n2) * d + (n2 + n1) * r))
+
+
+def _matvec_bound_fp32(n1, n2, r, name="se+white"):
+    """The bound of a product on the CUDA cores: 2 N1 N2 R FP32 FMA flops,
+    as the FP32 kernel that the tensor-core one replaced was held."""
+    return bound_ms(flops=2.0 * n1 * n2 * r,
+                    exps=float(SFU_PER_ENTRY[name]) * n1 * n2,
+                    nbytes=4.0 * (n1 + 2 * r * n2))
+
+
 def _matvec_checks(torch, gt, records):
-    """Both kernels against their plain versions at the path's shapes, the
-    ragged and D = 12 shapes, and a 4096-row slice at N = 131,072; their
-    records (kernel, plain, library ms and bounds at N = 32,768).
+    """Both kernels against their plain versions at the path's shapes
+    (R = 1, 8, 9 and fit_iterative's 256), the ragged, D = 12 and D = 20
+    shapes, and a 4096-row slice at N = 131,072; their records (kernel, plain,
+    library ms and bounds at N = 32,768).
 
     Every output within 4 f32 ulps of its sum of |terms| sum_j |K_ij|
-    |V_jr| (_hold_ulps): each entry k(r2) carries a few ulps (the f32
-    difference, expf, r2 / sigma^2 scaling the argument's rounding) with
-    random signs; the tile sums are float over 32 terms and double across
-    tiles."""
+    |V_jr| (_hold_ulps) against float64: each entry k(r2) carries a few
+    ulps (the f32 difference, ex2, the argument's rounding) with random
+    signs; the four TF32 products of hi/lo splits miss up to 2 x 2^-22 of
+    each term (both lo parts rounded), signs at random, which a row that
+    one term dominates shows most (D = 20, where the diagonal is ~100
+    times a typical entry); each k step's truncating MMAs go into a fresh
+    fragment, added to the accumulator rounded, and every 64 k an exact
+    TwoSum folds it. A second witness: the plain TF32 version (the
+    kernel's arithmetic in torch, _gram_matvec_tf32x3_torch) within the
+    same 4 ulps. A repeated call gives the same bits (no atomics)."""
     from gpx_torch.ops import cuda_gram
     from gpx_torch.ops import cuda_matvec as cm
 
@@ -1445,6 +1490,8 @@ def _matvec_checks(torch, gt, records):
     def gram_case(label, x, v, rows=None, kern=kern, k64=k64):
         xc = x - x.mean(dim=0, keepdim=True)
         got = cm.gram_matvec_cuda(kern, xc, v, nugget=nug)
+        check(torch.equal(got, cm.gram_matvec_cuda(kern, xc, v, nugget=nug)),
+              f"{label}: a repeated call differs")
         x64, v64 = xc.double(), v.double()
         if rows is None:
             want = cm._gram_matvec_torch(k64, x64, v64, nug)
@@ -1456,21 +1503,31 @@ def _matvec_checks(torch, gt, records):
             got = got[:rows]
         errs["gram_matvec"] = max(errs["gram_matvec"],
                                   _hold_ulps(torch, label, got, want, scale, 4.0))
+        del want
+        wit = cm._gram_matvec_tf32x3_torch(kern, xc, v, nug, rows=rows)
+        _hold_ulps(torch, f"{label} against the plain TF32 version", got,
+                   wit.double(), scale, 4.0)
 
     def cross_case(label, x1, x2, v, kern=kern, k64=k64):
         c = x2.mean(dim=0, keepdim=True)
         x1c, x2c = x1 - c, x2 - c
         got = cm.cross_matvec_cuda(kern, x1c, x2c, v)
+        check(torch.equal(got, cm.cross_matvec_cuda(kern, x1c, x2c, v)),
+              f"{label}: a repeated call differs")
         want = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(), v.double())
         scale = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(),
                                        v.double().abs())
         errs["cross_matvec"] = max(errs["cross_matvec"],
                                    _hold_ulps(torch, label, got, want, scale, 4.0))
+        wit = cm._cross_matvec_tf32x3_torch(kern, x1c, x2c, v)
+        _hold_ulps(torch, f"{label} against the plain TF32 version", got,
+                   wit.double(), scale, 4.0)
 
     x = torch.as_tensor(_iter_case(N_IT)[0], device="cuda")
-    for r in (1, 8, 9):
+    for r in (1, 8, 9, 256):
         v = torch.randn((N_IT, r), generator=gen, device="cuda")
         gram_case(f"gram_matvec n={N_IT} d=1 r={r}", x, v)
+    del v
     xr = torch.rand((N_RAGGED, 2), generator=gen, device="cuda") * 20.0 - 10.0
     gram_case(f"gram_matvec n={N_RAGGED} d=2 r=3 (ragged)", xr,
               torch.randn((N_RAGGED, 3), generator=gen, device="cuda"))
@@ -1480,6 +1537,12 @@ def _matvec_checks(torch, gt, records):
     xd[N_DUP - nd:] = xd[:nd]
     gram_case(f"gram_matvec n={N_DUP} d=12 r=2 ({nd} duplicated points)", xd,
               torch.randn((N_DUP, 2), generator=gen, device="cuda"))
+    # D = 20: coordinates through L1 (the kernel stages D <= 16 in shared
+    # memory); R = 40: three 16-column chunks, the last ragged
+    xw = torch.randn((N_DUP, 20), generator=gen, device="cuda")
+    xw[N_DUP - nd:] = xw[:nd]
+    gram_case(f"gram_matvec n={N_DUP} d=20 r=40 ({nd} duplicated points)", xw,
+              torch.randn((N_DUP, 40), generator=gen, device="cuda"))
     xs = torch.linspace(-10.0, 10.0, N_TEST, device="cuda")[:, None]
     cross_case(f"cross_matvec ({N_TEST}, {N_IT}) d=1 r=1", xs, x,
                torch.randn((N_IT, 1), generator=gen, device="cuda"))
@@ -1510,66 +1573,117 @@ def _matvec_checks(torch, gt, records):
                f"duplicates across the sets)", x1, x2,
                torch.randn((n2, 3), generator=gen, device="cuda"), kern=mk,
                k64=mk64)
-    # a product (evaluated in chunks of 8 entries) at the path's width
+    # a product (its factors multiplied in registers) at the path's width
     pk = _families(gt)["se*periodic+white"]
     gram_case(f"gram_matvec se*periodic+white n={N_RAGGED} d=1 r=9 (ragged)",
               xr[:, :1], torch.randn((N_RAGGED, 9), generator=gen, device="cuda"),
               kern=pk, k64=_f64_kernel(gt, pk))
+    torch.cuda.empty_cache()
 
     # times at the path's shapes: CG's width r = 9 (alpha + 8 probes);
     # the library call is one torch.matmul on a prebuilt K, which leaves
     # out the Gram build: no single PyTorch call forms K V without K
+    t = _matvec_times(torch, gt, gen)
     xc = x - x.mean(dim=0, keepdim=True)
-    times = {}
-    for r in (1, 8, 9):
-        v = torch.randn((N_IT, r), generator=gen, device="cuda")
-        times[r] = time_ms(torch, lambda: cm.gram_matvec_cuda(kern, xc, v, nugget=nug),
-                           reps=20)
+    v = torch.randn((N_IT, 9), generator=gen, device="cuda")
     plain = time_ms(torch, lambda: cm._gram_matvec_torch(kern, xc, v, nug), reps=3)
     kmat = cuda_gram.gram_cuda(kern, xc, nugget=nug)
     lib = time_ms(torch, lambda: torch.matmul(kmat, v), reps=20)
     del kmat
-    xbc = xbig - xbig.mean(dim=0, keepdim=True)
-    big_ms = time_ms(torch, lambda: cm.gram_matvec_cuda(kern, xbc, vbig, nugget=nug),
-                     reps=3)
-    bound = bound_ms(flops=2.0 * N_IT * N_IT * 9, exps=float(N_IT) ** 2,
-                     nbytes=4.0 * (N_IT + 2 * 9 * N_IT))
-    # every family's kernel at the path's width, beside SE + White's
-    family_ms = {}
-    for name, fk in _families(gt).items():
-        ms = time_ms(torch, lambda: cm.gram_matvec_cuda(fk, xc, v, nugget=nug),
-                     reps=10)
-        fb = bound_ms(flops=2.0 * N_IT * N_IT * 9,
-                      exps=float(SFU_PER_ENTRY[name]) * N_IT ** 2,
-                      nbytes=4.0 * (N_IT + 2 * 9 * N_IT))
-        family_ms[name] = {"ms": ms, "bound_ms": fb[0], "bound_by": fb[1]}
-        print(f"gram_matvec {name} n={N_IT} r=9: {ms:.3f} ms (bound {fb[0]:.3f}"
-              f" ms, {fb[1]})", flush=True)
+    bound = _matvec_bound(N_IT, N_IT, 1, 9)
+    old = _matvec_bound_fp32(N_IT, N_IT, 9)
+    for name, ms in t["gram_matvec_family_ms"].items():
+        fb = _matvec_bound(N_IT, N_IT, 1, 9, name)
+        ms.update(bound_ms=fb[0], bound_by=fb[1],
+                  bound_fp32_ms=_matvec_bound_fp32(N_IT, N_IT, 9, name)[0])
+        print(f"gram_matvec {name} n={N_IT} r=9: {ms['ms']:.3f} ms (bound "
+              f"{fb[0]:.3f} ms, {fb[1]}; FP32-FMA bound {ms['bound_fp32_ms']:.3f})",
+              flush=True)
+    t["gram_matvec_bound_ms"] = {
+        r: [_matvec_bound(N_IT, N_IT, 1, r)[0], _matvec_bound_fp32(N_IT, N_IT, r)[0]]
+        for r in (1, 8, 9, 256)}
+    times = t["gram_matvec_ms"]
     print(f"gram_matvec n={N_IT} d=1: kernel r=1 {times[1]:.3f} ms, r=8 "
-          f"{times[8]:.3f} ms, r=9 {times[9]:.3f} ms; plain (r=9, float32) "
-          f"{plain:.3f} ms; torch.matmul on a prebuilt K (r=9, Gram build "
-          f"excluded) {lib:.3f} ms; bound (r=9) {bound[0]:.3f} ms ({bound[1]}); "
-          f"n={N_SCALE} r=9 {big_ms:.3f} ms", flush=True)
+          f"{times[8]:.3f} ms, r=9 {times[9]:.3f} ms, r=256 {times[256]:.3f} ms "
+          f"(bounds, tensor-core and FP32-FMA: {json.dumps(t['gram_matvec_bound_ms'])}); "
+          f"plain (r=9, float32) {plain:.3f} ms; torch.matmul on a prebuilt K "
+          f"(r=9, Gram build excluded) {lib:.3f} ms; bound (r=9) {bound[0]:.3f} "
+          f"ms ({bound[1]}; FP32-FMA {old[0]:.3f}); n={N_SCALE} r=9 "
+          f"{t['gram_matvec_ms_n131072_r9']:.3f} ms", flush=True)
     records["gram_matvec"] = _record(
         "gram_matvec", "gpx_torch/csrc/matvec.cu", "gpx/ops/pallas_matvec.py:73",
         errs["gram_matvec"], times[9], plain, bound, lib)
 
     xsc, xc2 = xs - x.mean(dim=0, keepdim=True), xc
     alpha = torch.randn((N_IT, 1), generator=gen, device="cuda")
-    ms = time_ms(torch, lambda: cm.cross_matvec_cuda(kern, xsc, xc2, alpha), reps=20)
+    ms = t["cross_matvec_ms"]
     plain = time_ms(torch, lambda: cm._cross_matvec_torch(kern, xsc, xc2, alpha), reps=5)
     kx = cuda_gram.gram_cuda(kern, xsc, xc2)
     lib = time_ms(torch, lambda: torch.matmul(kx, alpha), reps=20)
-    bound = bound_ms(flops=2.0 * N_TEST * N_IT, exps=float(N_TEST) * N_IT,
-                     nbytes=4.0 * (N_TEST + 2 * N_IT + N_TEST))
+    bound = _matvec_bound(N_TEST, N_IT, 1, 1)
+    old = _matvec_bound_fp32(N_TEST, N_IT, 1)
     print(f"cross_matvec ({N_TEST}, {N_IT}) r=1: kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, torch.matmul on a prebuilt K {lib:.3f} ms, bound "
-          f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
+          f"{bound[0]:.4f} ms ({bound[1]}; FP32-FMA {old[0]:.4f})", flush=True)
     records["cross_matvec"] = _record(
         "cross_matvec", "gpx_torch/csrc/matvec.cu", "gpx/ops/pallas_matvec.py:175",
         errs["cross_matvec"], ms, plain, bound, lib)
+    return t
+
+
+def _matvec_times(torch, gt, gen):
+    """The matvec kernels' times at the path's shapes (CUDA events):
+    gram_matvec at N = 32,768 for R = 1, 8, 9 and 256 and at N = 131,072
+    for R = 9, cross_matvec (1024 x 32,768, R = 1), every family at R = 9.
+    Uses only what earlier trees of the port have (``--matvec-times``)."""
+    from gpx_torch.ops import cuda_matvec as cm
+
+    kern, nug = _iter_kernel(gt), 1e-3
+    x = torch.as_tensor(_iter_case(N_IT)[0], device="cuda")
+    xc = x - x.mean(dim=0, keepdim=True)
+    times = {}
+    for r in (1, 8, 9, 256):
+        v = torch.randn((N_IT, r), generator=gen, device="cuda")
+        times[r] = time_ms(torch, lambda: cm.gram_matvec_cuda(kern, xc, v, nugget=nug),
+                           reps=20 if r < 256 else 3)
+    v = torch.randn((N_IT, 9), generator=gen, device="cuda")
+    family_ms = {name: {"ms": time_ms(torch, lambda: cm.gram_matvec_cuda(
+        fk, xc, v, nugget=nug), reps=10)} for name, fk in _families(gt).items()}
+    xbig = torch.as_tensor(_iter_case(N_SCALE)[0], device="cuda")
+    xbc = xbig - xbig.mean(dim=0, keepdim=True)
+    vbig = torch.randn((N_SCALE, 9), generator=gen, device="cuda")
+    big_ms = time_ms(torch, lambda: cm.gram_matvec_cuda(kern, xbc, vbig, nugget=nug),
+                     reps=3)
+    xs = torch.linspace(-10.0, 10.0, N_TEST, device="cuda")[:, None]
+    xsc = xs - x.mean(dim=0, keepdim=True)
+    alpha = torch.randn((N_IT, 1), generator=gen, device="cuda")
+    cross = time_ms(torch, lambda: cm.cross_matvec_cuda(kern, xsc, xc, alpha),
+                    reps=20)
     return {"gram_matvec_ms": times, "gram_matvec_ms_n131072_r9": big_ms,
-            "gram_matvec_family_ms": family_ms}
+            "gram_matvec_family_ms": family_ms, "cross_matvec_ms": cross}
+
+
+def phase_matvec_times(torch, gt):
+    """``--matvec-times``: the kernels' times (_matvec_times), then the
+    iterative logML and fit_iterative ms/eval at N = 32,768 (median of 5,
+    CUDA events), in one JSON line."""
+    from gpx_torch.models import gp_iterative as gi
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = _matvec_times(torch, gt, gen)
+    x_np, y_np = _iter_case(N_IT)
+    params = gt.Parameters(mean=gt.zero(), kernel=_iter_kernel(gt))
+    x = torch.as_tensor(x_np, device="cuda")
+    y = torch.as_tensor(y_np, device="cuda")
+    xs = torch.linspace(-10.0, 10.0, N_TEST, device="cuda")[:, None]
+    key = torch.Generator(device="cuda").manual_seed(0)
+    out["logml_ms_per_eval"] = _median_ms(torch, lambda: gi.logml_value_and_grad_iterative(
+        params, x, y, key, **ITER))
+    out["fit_ms_per_eval"] = _median_ms(torch, lambda: gi.fit_iterative(
+        params, x, y, xs, cg_tol=ITER["cg_tol"], precond_rank=ITER["precond_rank"],
+        variance="exact", variance_block=256))
+    print("matvec_times: " + json.dumps(out), flush=True)
+    return out
 
 
 def _dense_gram64(torch, kernel, x, nugget, block=4096):
@@ -2491,6 +2605,10 @@ def main() -> int:
         print("summary: " + json.dumps(summary), flush=True)
         print(f"total {time.perf_counter() - t0:.1f} s (sampler only)",
               flush=True)
+        return 0
+    if "--matvec-times" in sys.argv[1:]:
+        phase_matvec_times(torch, gt)
+        print(f"total {time.perf_counter() - t0:.1f} s (matvec times)", flush=True)
         return 0
     if "--bench-only" in sys.argv[1:]:
         records = {name: {} for name in _counters()}

@@ -11,12 +11,16 @@ The plain versions (:func:`_gram_matvec_torch`, :func:`_cross_matvec_torch`)
 work in row blocks, each under ``torch.utils.checkpoint``, so that autograd
 through them recomputes a block instead of storing O(N^2) residuals: they
 are the differentiable route of the hyperparameter gradient, as
-``_gram_matvec_xla`` is in the JAX package.
+``_gram_matvec_xla`` is in the JAX package. Their TF32 twins
+(:func:`_gram_matvec_tf32x3_torch`, :func:`_cross_matvec_tf32x3_torch`)
+repeat the kernel's split products in float32, for the tests and
+``chip_smoke.py`` only.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gpx_torch.kernels import has_white
@@ -28,7 +32,7 @@ from gpx_torch.params import leaves
 _ARGS = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.P, _build.L,
          _build.I, _build.P, _build.I, _build.P, _build.I, _build.F, _build.I,
          _build.P, _build.P, _build.L, _build.P]
-_SPLIT_ARGS = [_build.I, _build.I, _build.I]
+_SPLIT_ARGS = [_build.I, _build.I, _build.I, _build.I]
 
 
 def _checkpointed(kernel, *tensors):
@@ -83,6 +87,86 @@ def _cross_matvec_torch(kernel, x1, x2, v2, block: int = 2048):
                       for i0 in range(0, x1.shape[0], block)])
 
 
+SLAB = 64  # csrc/matvec.cu: MV_BK, the points between two folds
+
+
+def _tf32_split(a):
+    """``(hi, lo)`` of float32 ``a``: ``a = hi + lo + O(2^-22 |a|)``, both
+    rounded to TF32 to nearest, ties away (``csrc/mma_tf32.cuh``'s
+    ``split``)."""
+    hi = ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    lo = (((a - hi).view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _tf32x3_product(kb, v2, passes: int = 4):
+    """``kb @ v2`` as the kernel forms it from float32 ``kb`` (rows, N2) and
+    ``v2`` (N2, R): both split into TF32 hi/lo, the products lo*lo + lo*hi
+    + hi*lo + hi*hi (``passes`` < 4 keeps the last ones: 1 is hi*hi
+    alone), each 64-point slab summed and rounded to float32, the slabs
+    summed in float64 and the result rounded to float32."""
+    pad = (-kb.shape[1]) % SLAB
+    (kh, kl), (vh, vl) = _tf32_split(kb), _tf32_split(v2)
+    pairs = ((kl, vl), (kl, vh), (kh, vl), (kh, vh))[4 - passes:]
+    slabs = 0.0
+    for a, b in pairs:
+        a = F.pad(a.double(), (0, pad)).unflatten(1, (-1, SLAB)).transpose(0, 1)
+        b = F.pad(b.double(), (0, 0, 0, pad)).unflatten(0, (-1, SLAB))
+        slabs = slabs + a @ b                          # (slabs, rows, R)
+    return slabs.float().double().sum(dim=0).float()
+
+
+def _tf32x3_rows(n2: int, d: int, r: int) -> int:
+    """Rows per block of the TF32 plain versions: ~32 MiB of slab sums and
+    ~256 MiB of coordinate differences."""
+    return max(1, min(2048, (1 << 22) // (-(-n2 // SLAB) * r),
+                      (1 << 26) // (n2 * d)))
+
+
+def _r2_as_kernel(xb, x2):
+    """Squared distances as the kernel forms them: broadcast differences
+    of the coordinates as given (no centring of the block), at any D."""
+    diff = xb[:, None, :] - x2[None, :, :]
+    return torch.sum(diff * diff, dim=-1)
+
+
+def _gram_matvec_tf32x3_torch(kernel, x, v2, nugget, *, rows=None,
+                              passes: int = 4):
+    """``(K(x, x) + nugget I) @ v2`` in float32 with the kernel's TF32
+    arithmetic (:func:`_tf32x3_product`), for the first ``rows`` rows (all
+    by default): the CUDA kernel's second witness beside float64, for the
+    tests and ``chip_smoke.py``. ``x`` is centred, as the kernel takes
+    it."""
+    n = x.shape[0] if rows is None else rows
+    block = _tf32x3_rows(*x.shape, v2.shape[1])
+    cols = torch.arange(x.shape[0], device=x.device)
+    out = []
+    with torch.no_grad():
+        for i0 in range(0, n, block):
+            xb = x[i0:min(n, i0 + block)]
+            diag = (i0 + torch.arange(xb.shape[0], device=x.device))[:, None] \
+                == cols[None, :]
+            r2 = torch.where(diag, 0.0, _r2_as_kernel(xb, x))
+            kb = kernel.evaluate_xx(xb, x, r2)
+            kb = torch.where(diag, kb + nugget, kb)
+            out.append(_tf32x3_product(kb, v2, passes))
+    return torch.cat(out)
+
+
+def _cross_matvec_tf32x3_torch(kernel, x1, x2, v2, *, passes: int = 4):
+    """``K(x1, x2) @ v2`` with the kernel's TF32 arithmetic, as
+    :func:`_gram_matvec_tf32x3_torch`, for ``x1`` and ``x2`` centred
+    together."""
+    block = _tf32x3_rows(*x2.shape, v2.shape[1])
+    out = []
+    with torch.no_grad():
+        for i0 in range(0, x1.shape[0], block):
+            xb = x1[i0:i0 + block]
+            kb = kernel.evaluate_xx(xb, x2, _r2_as_kernel(xb, x2))
+            out.append(_tf32x3_product(kb, v2, passes))
+    return torch.cat(out)
+
+
 def gram_matvec_cuda(kernel, x, v2, *, nugget: float = 0.0):
     """``(K(x, x) + nugget I) @ v2`` through the CUDA kernel, for centred
     float32 ``x`` (N, D) and ``v2`` (N, R). On CPU tensors this is
@@ -132,7 +216,7 @@ def _launch(kernel, x1, x2, v2, nugget, *, symmetric):
     if n2 == 0:
         return out.zero_()
     table, params = table_tensors(kernel, dev)
-    splits = _build.function("matvec", "gpx_matvec_splits", _SPLIT_ARGS)(n1, n2, r)
+    splits = _build.function("matvec", "gpx_matvec_splits", _SPLIT_ARGS)(n1, n2, r, d)
     partials = torch.empty((splits, n1, r), dtype=torch.float64, device=dev)
     fn = _build.function("matvec", "gpx_matvec", _ARGS)
     status = fn(_build.ptr(x1), _build.ptr(x2), n1, n2, d, _build.ptr(v2),

@@ -9,11 +9,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. the card's name and power limit (nvidia-smi); TF32 off; build the CUDA
    sources under gpx_torch/csrc (nvcc, sm_90a), printing the build time;
 2. each kernel against its plain version at the shapes the main paths give
-   it, with the tolerance and its reason (trmm and syrk_lower in f32 ulps
+   it, with the tolerance and its reason (the Gram at N = 16384 and on its
+   edge paths: ragged and odd n, a cross block with an odd m, D = 12 with
+   duplicated points where White must fire exactly, K bitwise K^T and
+   repeated calls bitwise, its time beside the card's fill floor; trmm and
+   syrk_lower in f32 ulps
    of each entry's sum of |terms| against float64, on ragged shapes and
    unaligned views too; syrk_lower's writes on i >= j only, aliased and
    repeated calls bitwise; the leaf at t = 128 and 100; the gradient at
-   n = 4096, 4160 and 16384, repeated calls bitwise); kernel, plain and
+   n = 4096, 4160 and 16384, repeated calls bitwise; the probe kernel at
+   s = 64 and 128 (N = 16384), 96, 41 and 1 (n = 4096), 64 (n = 4160), on
+   the hybrid's own two blocks, against the plain version of its 3xTF32
+   product, with identity probes against the exact kernel, repeated calls
+   bitwise); kernel, plain and
    library times; the spine factorization and its solves; chol_inv's
    products by level; chol_inv at base 64 and 128 on a padded Gram;
    then (``phase_families``) the Gram and gradient kernels on every other
@@ -79,6 +87,15 @@ fit_iterative's ms/eval only, in one ``matvec_times`` JSON line and with
 no ``kernels`` or ``ok`` line. It uses nothing that earlier trees of the
 port lack, so a copy of this script beside an earlier tree's
 ``gpx_torch`` times both trees alike.
+
+    python3 chip_smoke.py --kernel-times
+
+runs phase 1 and the probe kernel's and the Gram's times at N = 16,384
+(the probe at s = 1, 8, 64, 128 and with ARD; the Gram for every family
+at D = 1 and 2 beside the card's fill floor), the hybrid's probe stage on
+the bench case's real blocks, and the exact and hybrid ms/eval, in one
+``kernel_times`` JSON line and with no ``kernels`` or ``ok`` line. Like
+``--matvec-times`` it runs beside an earlier tree's ``gpx_torch``.
 
     python3 chip_smoke.py --sampler-only
 
@@ -217,6 +234,68 @@ def _odd_view(torch, rows, cols, ld, off, gen):
     return buf[off:].view(rows, ld)[:, :cols]
 
 
+def _gram_bitwise(torch, label, got, again) -> None:
+    """A symmetric Gram is bitwise equal to its transpose (broadcast
+    differences: r2(i, j) and r2(j, i) are the same float sums), and a
+    repeated call is bitwise equal."""
+    sym = torch.equal(got, got.T)
+    rep = torch.equal(got, again())
+    print(f"{label}: K bitwise K^T {sym}, a repeated call bitwise {rep}",
+          flush=True)
+    check(sym, f"{label}: K is not bitwise symmetric")
+    check(rep, f"{label}: a repeated call differs")
+
+
+def _gram_edges(torch, gt, kern, gen) -> None:
+    """The Gram kernel's edge paths against its plain version (1e-5 of
+    max|K|): a ragged n (4100: 16-byte rows, but neither the 32-row nor the
+    128-column tile divides it) and an odd one (4133: 4-byte stores
+    throughout), bitwise symmetric; a cross block with an odd m (1000 x
+    2001); D = 12 with its last quarter duplicating its first, where a
+    White Gram must be exactly its variance at the duplicate pairs and on
+    the diagonal (+ the nugget there) and exactly zero elsewhere, and SE +
+    White within its float64 limits (_hold_gram)."""
+    from gpx_torch.ops import cuda_gram
+
+    x = torch.rand((4133, 2), generator=gen, device="cuda") * 20.0 - 10.0
+    for n in (4100, 4133):
+        xs = x[:n].contiguous()
+        got = cuda_gram.gram_cuda(kern, xs, nugget=1e-3)
+        want = cuda_gram.gram_reference(kern, xs, None, 1e-3)
+        err = float((got - want).abs().max())
+        print(f"gram n={n} d={x.shape[1]}: max abs err {err:.3e}", flush=True)
+        check(err <= 1e-5 * float(want.abs().max()), f"gram n={n} disagrees")
+        _gram_bitwise(torch, f"gram n={n}", got,
+                      lambda: cuda_gram.gram_cuda(kern, xs, nugget=1e-3))
+    x1, x2 = x[:1000], x[1000:3001]
+    got = cuda_gram.gram_cuda(kern, x1, x2)
+    want = cuda_gram.gram_reference(kern, x1, x2)
+    err = float((got - want).abs().max())
+    print(f"gram cross (1000, 2001) d={x.shape[1]}: max abs err {err:.3e}",
+          flush=True)
+    check(err <= 1e-5 * float(want.abs().max()), "cross gram m=2001 disagrees")
+    check(torch.equal(got, cuda_gram.gram_cuda(kern, x1, x2)),
+          "cross gram: a repeated call differs")
+
+    n, q = 4096, 1024
+    x12 = torch.randn((n, 12), generator=gen, device="cuda")
+    x12[n - q:] = x12[:q]
+    white = gt.white(0.5)
+    got = cuda_gram.gram_cuda(white, x12, nugget=1e-3)
+    idx = torch.arange(q, device="cuda")
+    want = torch.zeros((n, n), device="cuda")
+    want[idx, idx + n - q] = want[idx + n - q, idx] = 0.5
+    want.diagonal().fill_(float(torch.tensor(0.5) + torch.tensor(1e-3)))
+    exact = torch.equal(got, want)
+    print(f"gram white d=12 n={n}, {q} duplicate pairs: exactly 0.5 at the "
+          f"duplicates, 0.5 + nugget on the diagonal, 0 elsewhere: {exact}",
+          flush=True)
+    check(exact, "gram d=12: White does not fire exactly at the duplicates")
+    _hold_gram(torch, gt, "se+white duplicates", kern, x12)
+    _gram_bitwise(torch, "gram se+white d=12", cuda_gram.gram_cuda(
+        kern, x12, nugget=1e-3), lambda: cuda_gram.gram_cuda(kern, x12, nugget=1e-3))
+
+
 def _hold_trmm(torch, b, l, mode, neg=False, out=None, fast=False) -> float:
     """trmm against its plain version in float64 (_hold_ulps); with
     ``fast`` the 2-pass leg against the plain version that rounds the same
@@ -320,19 +399,27 @@ def phase_kernels(torch, gt):
         err = float((got - want).abs().max())
         print(f"gram n={n} d={d}: max abs err {err:.3e}", flush=True)
         check(err <= 1e-5 * float(want.abs().max()), "gram disagrees")
+        del want
+        _gram_bitwise(torch, f"gram n={n} d={d}", got,
+                      lambda: cuda_gram.gram_cuda(kern, x, nugget=1e-3))
         if d == 1:
             ms = time_ms(torch, lambda: cuda_gram.gram_cuda(kern, x, nugget=1e-3))
             plain = time_ms(torch, lambda: cuda_gram.gram_reference(kern, x, None, 1e-3))
+            fill = time_ms(torch, lambda: torch.empty((n, n), device=dev).fill_(1.0))
+            bound = bound_ms(nbytes=4.0 * n * n + 4.0 * n * d)
+            print(f"gram n={n} d=1: kernel {ms:.3f} ms, bound {bound[0]:.3f} ms "
+                  f"({bound[1]}), the card's fill floor (torch.empty((n, n))"
+                  f".fill_(1.0)) {fill:.3f} ms", flush=True)
             record("gram", "gpx_torch/csrc/gram.cu",
-                   "gpx/ops/pallas_gram.py:89", err, ms, plain,
-                   bound_ms(nbytes=4.0 * n * n + 4.0 * n * d), None)
-        del got, want
+                   "gpx/ops/pallas_gram.py:89", err, ms, plain, bound, None)
+        del got
     # a cross-covariance block (x2 given: no nugget, no forced diagonal)
     got = cuda_gram.gram_cuda(kern, x[:1000], x[1000:3000])
     want = cuda_gram.gram_reference(kern, x[:1000], x[1000:3000])
     err = float((got - want).abs().max())
     print(f"gram cross (1000, 2000) d=2: max abs err {err:.3e}", flush=True)
     check(err <= 1e-5 * float(want.abs().max()), "cross gram disagrees")
+    _gram_edges(torch, gt, kern, gen)
 
     # -- 2./3. trmm (three modes, neg) and syrk_lower at 8192^2 and 5120-row
     # panels, ragged shapes on both tile sizes, views with an odd leading
@@ -508,7 +595,6 @@ def phase_kernels(torch, gt):
     _, m_rag = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, x_rag, nugget=1e-3))
     a_rag = torch.randn(n_rag, generator=gen, device=dev) * 0.1
     err = max(err, _hold_grads(torch, gt, kern, x_rag, a_rag, m_rag))
-    del m_rag
     alpha16 = torch.randn(N_BENCH, generator=gen, device=dev) * 0.1
     m16 = mf
     err = max(err, _hold_grads(torch, gt, kern, x, alpha16, m16))
@@ -531,28 +617,42 @@ def phase_kernels(torch, gt):
 
     # -- 6. logml_probe_grads: against its plain version in float64 on the
     # same f32 inputs (_hold) at the main path's N = 16384 with s = 64 (the
-    # plain estimate) and s = 128 (the augmented block), and at n = 4096
-    # with ragged s = 96 and 41; with identity probes against
-    # logml_kernel_grads at n = 2048; timed at N = 16384, s = 64 and 128
+    # plain estimate) and s = 128 (the augmented block's width), at n = 4096
+    # with ragged s = 96 and 41 (s = 96 also against the plain TF32
+    # version) and s = 1, at n = 4160 (= 64 mod 128: the last 128-wide tile
+    # row half outside n); the bench case's two real blocks from
+    # _hybrid_deflation (z_aug carries Q's columns: not +-1); a repeated
+    # call bitwise; with identity probes against logml_kernel_grads at
+    # n = 2048; timed at N = 16384, s = 64 and 128
     probe_ms, err = {}, 0.0
     for xp, m_inv, al, s in ((x, m16, alpha16, 64), (x, m16, alpha16, 128),
-                             (xs, ms_inv, alpha, 96), (xs, ms_inv, alpha, 41)):
+                             (xs, ms_inv, alpha, 96), (xs, ms_inv, alpha, 41),
+                             (xs, ms_inv, alpha, 1), (x_rag, m_rag, a_rag, 64)):
         z = _rademacher(torch, (xp.shape[0], s), gen)
         u = m_inv.T @ (m_inv @ z)  # K^-1 z through the factor
-        err = max(err, _hold_probe(torch, gt, kern, xp, al, u, z))
+        err = max(err, _hold_probe(torch, gt, kern, xp, al, u, z, tf32=s == 96))
         if xp.shape[0] == N_BENCH:
             probe_ms[s] = (
                 time_ms(torch, lambda: cuda_logml_grad.logml_probe_grads(
                     kern, xp, al, u, z), reps=5),
                 time_ms(torch, lambda: cuda_logml_grad.logml_probe_grads_reference(
                     kern, xp, al, u, z), reps=3),
-                bound_ms(flops=2.0 * N_BENCH ** 2 * s,
-                         nbytes=4.0 * (2 * N_BENCH * s + 2 * N_BENCH)))
+                _probe_bound(N_BENCH, s))
             print(f"logml_probe_grads n={N_BENCH} s={s}: kernel "
                   f"{probe_ms[s][0]:.3f} ms  plain {probe_ms[s][1]:.3f} ms  "
-                  f"bound {probe_ms[s][2][0]:.3f} ms ({probe_ms[s][2][1]})",
-                  flush=True)
-    del ms_inv, m16, mf
+                  f"bound {probe_ms[s][2][0]:.3f} ms ({probe_ms[s][2][1]}; "
+                  f"3xTF32, the SFU's exps, bytes); the SIMT kernel's FP32 formula "
+                  f"{_probe_bound_fp32(N_BENCH, s)[0]:.3f} ms", flush=True)
+            if s == 64:
+                first = _outputs(gt, cuda_logml_grad.logml_probe_grads(
+                    kern, xp, al, u, z))
+                again = _outputs(gt, cuda_logml_grad.logml_probe_grads(
+                    kern, xp, al, u, z))
+                print(f"logml_probe_grads n={N_BENCH} s=64: a repeated call "
+                      f"bitwise {first == again}", flush=True)
+                check(first == again, "logml_probe_grads: a repeated call differs")
+    del ms_inv, m16, mf, m_rag
+    err = max(err, _probe_hybrid_blocks(torch, gt))
     _probe_identity(torch, gt, kern, x[:2048].contiguous(), gen)
     ms, plain, bound = probe_ms[64]
     record("logml_probe_grads", "gpx_torch/csrc/logml_probe_grad.cu",
@@ -902,8 +1002,10 @@ def _hold_grads(torch, gt, kern, x, alpha, l_inv, ard=False, label="",
 
 
 def _hold_probe(torch, gt, kern, x, alpha, u, z, ard=False, label="",
-                witness=False) -> float:
-    """logml_probe_grads against its plain version (_hold)."""
+                witness=False, tf32=False) -> float:
+    """logml_probe_grads against its plain version (_hold); ``tf32``: also
+    against the plain version of its 3xTF32 product (probe_what_tf32x3,
+    contracted in float64) within the same limits."""
     from gpx_torch.ops import cuda_logml_grad
 
     got = _outputs(gt, cuda_logml_grad.logml_probe_grads(kern, x, alpha, u, z,
@@ -916,9 +1018,40 @@ def _hold_probe(torch, gt, kern, x, alpha, u, z, ard=False, label="",
         kern, x, alpha, u, z, ard=ard)) if witness else None)
     what = (u64 @ z64.T + z64 @ u64.T) * (0.5 / z.shape[1])
     scales = _term_scales(torch, *args, what, ard=ard)
-    return _hold(f"logml_probe_grads {label}n={x.shape[0]} s={z.shape[1]}"
-                 + (f" ard d={x.shape[1]}" if ard else ""), got, want, scales,
-                 _names(gt, kern, x.shape[1] if ard else 0), f32)
+    label = (f"logml_probe_grads {label}n={x.shape[0]} s={z.shape[1]}"
+             + (f" ard d={x.shape[1]}" if ard else ""))
+    names = _names(gt, kern, x.shape[1] if ard else 0)
+    err = _hold(label, got, want, scales, names, f32)
+    if tf32:
+        split = _outputs(gt, cuda_logml_grad.logml_probe_grads_tf32x3(
+            *args, u, z, ard=ard))
+        _hold(label + " vs the plain 3xTF32 version", got, split, scales, names)
+    return err
+
+
+def _probe_hybrid_blocks(torch, gt) -> float:
+    """The probe kernel on the two blocks one hybrid eval gives it at the
+    bench case (_hybrid_probe_inputs: s = 64 Rademacher, and the augmented
+    s = 128 block whose z carries Q's columns) against its plain version
+    in float64 within _hold's limits, the float32 plain version's error
+    printed beside. The estimate's noise puts h's sum of |terms| ~1e8
+    times its value there, so h's 1e-2 relative limit is the one that
+    binds: it holds the kernel's own float32 arithmetic (its gradient
+    sums are in double for that). Returns the largest absolute error."""
+    from gpx_torch.models import gp
+
+    params, x, y = _bench_case_cuda(torch, gt)
+    alpha, (u, z), (u_aug, z_aug) = _hybrid_probe_inputs(
+        torch, gt, gp, params.kernel, x, y)
+    off = float(((z_aug.abs() - 1.0).abs() > 0).float().mean())
+    print(f"hybrid augmented block: s = {z_aug.shape[1]}, {100 * off:.1f}% of "
+          f"z's entries not +-1", flush=True)
+    check(off > 0.25, "the augmented block's z is +-1")
+    err = _hold_probe(torch, gt, params.kernel, x, alpha, u, z,
+                      label="hybrid block ", witness=True)
+    return max(err, _hold_probe(torch, gt, params.kernel, x, alpha, u_aug,
+                                z_aug, label="hybrid augmented block ",
+                                witness=True))
 
 
 def _probe_identity(torch, gt, kern, x, gen) -> None:
@@ -966,10 +1099,7 @@ def phase_bench(torch, gt, records):
     """The bench case end to end, against float64; returns the summary."""
     from gpx_torch.models import gp
 
-    rng = np.random.default_rng(0)
-    x_np = rng.uniform(-10.0, 10.0, size=(N_BENCH, 1)).astype(np.float32)
-    y_np = rng.normal(size=N_BENCH).astype(np.float32)
-    params = gt.Parameters(mean=gt.zero(), kernel=gt.se(3.0, 5.5) + gt.white(0.5))
+    params, x_np, y_np = _bench_case(gt)
     x = torch.as_tensor(x_np, device="cuda")
     y = torch.as_tensor(y_np, device="cuda")
 
@@ -1250,10 +1380,7 @@ def phase_hybrid(torch, gt, records):
     at n = 9000; its launch counts, ms/eval and stage times."""
     from gpx_torch.models import gp
 
-    rng = np.random.default_rng(0)
-    x_np = rng.uniform(-10.0, 10.0, size=(N_BENCH, 1)).astype(np.float32)
-    y_np = rng.normal(size=N_BENCH).astype(np.float32)
-    params = gt.Parameters(mean=gt.zero(), kernel=gt.se(3.0, 5.5) + gt.white(0.5))
+    params, x_np, y_np = _bench_case(gt)
     x = torch.as_tensor(x_np, device="cuda")
     y = torch.as_tensor(y_np, device="cuda")
 
@@ -1683,6 +1810,172 @@ def phase_matvec_times(torch, gt):
         params, x, y, xs, cg_tol=ITER["cg_tol"], precond_rank=ITER["precond_rank"],
         variance="exact", variance_block=256))
     print("matvec_times: " + json.dumps(out), flush=True)
+    return out
+
+
+def _bench_case(gt):
+    """The bench case: numpy seed 0, x ~ U(-10, 10) of shape (16384, 1),
+    y ~ N(0, 1), float32 numpy arrays; SE(3.0, 5.5) + White(0.5)."""
+    rng = np.random.default_rng(0)
+    x_np = rng.uniform(-10.0, 10.0, size=(N_BENCH, 1)).astype(np.float32)
+    y_np = rng.normal(size=N_BENCH).astype(np.float32)
+    params = gt.Parameters(mean=gt.zero(), kernel=gt.se(3.0, 5.5) + gt.white(0.5))
+    return params, x_np, y_np
+
+
+def _bench_case_cuda(torch, gt):
+    """The bench case with x and y on the card."""
+    params, x_np, y_np = _bench_case(gt)
+    return (params, torch.as_tensor(x_np, device="cuda"),
+            torch.as_tensor(y_np, device="cuda"))
+
+
+def _hybrid_probe_inputs(torch, gt, gp, kernel, x, y):
+    """The two probe blocks of one hybrid eval at the bench case, as
+    ``_logml_value_and_grad_hybrid`` forms them (seed-0 Rademacher probes,
+    s = 64, deflated to rank 64): ``(alpha, (u_plain, z), (u_aug, z_aug))``;
+    z_aug carries Q's columns, so it is not +-1."""
+    from gpx_torch.ops import cuda_chol, cuda_gram
+
+    k = cuda_gram.gram_cuda(kernel, x, nugget=gp.LOGML_NUGGET)
+    l, m = cuda_chol.chol_inv(k, spine=True)
+
+    def solve(b):
+        return cuda_chol.spine_solve_lower_t(l, m, cuda_chol.spine_solve_lower(l, m, b))
+
+    alpha = solve(y)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    z = _rademacher(torch, (x.shape[0], 64), gen)
+    u_plain, aug = gp._hybrid_deflation(kernel, x, z, solve, x.shape[0], None)
+    return alpha, (u_plain, z), aug
+
+
+def _probe_bound(n, s):
+    """The probe kernel's bound: the larger of 3 x 2 n^2 s TF32 FLOPs (one
+    2s-deep product over the lower triangle, three passes), one exp per
+    lower entry on the SFU, and the bytes (U, Z, x, alpha read once)."""
+    return bound_ms(tf32_flops=6.0 * n * n * s, exps=0.5 * n * n,
+                    nbytes=4.0 * (2 * n * s + 2 * n))
+
+
+def _probe_bound_fp32(n, s):
+    """The earlier SIMT kernel's bound: 2 n^2 s FP32 FLOPs on the CUDA
+    cores."""
+    return bound_ms(flops=2.0 * n * n * s, nbytes=4.0 * (2 * n * s + 2 * n))
+
+
+def _gram_l1_only(torch):
+    """``gpx_gram`` of ``csrc/gram.cu`` built with every D on its L1 path
+    (-DGPX_GRAM_L1_D=64) into ``build/gram_l1/``, as ``_build.function``
+    gives an entry point; None where the source has no such knob."""
+    import ctypes
+    from pathlib import Path
+
+    from gpx_torch.ops import _build, cuda_gram
+
+    src = _build.CSRC / "gram.cu"
+    if "GPX_GRAM_L1_D" not in src.read_text():
+        return None
+    out = Path(_build.BUILD_ROOT).parent / "gram_l1"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libgram.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DGPX_GRAM_L1_D=64",
+                    "-o", str(lib), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).gpx_gram
+    fn.argtypes = cuda_gram._ARGS
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def phase_kernel_times(torch, gt):
+    """``--kernel-times``: the probe kernel at N = 16,384 (SE + White at
+    s = 1, 8, 64, 128; Matern 5/2 + White with ARD at D = 3, s = 64), the
+    Gram at N = 16,384 for every family at D = 1 and 2 beside the card's
+    fill floor, and SE + White at D = 9-12 and 20 on its staged and its L1
+    coordinate path in turns (_gram_l1_only), logml_kernel_grads' times
+    and outputs in hex (SE + White, and ARD at D = 3; timed before the
+    Gram's writes), the hybrid's probe
+    stage (its two calls on the bench case's real blocks), and the exact
+    and hybrid ms/eval (median of 5), in one JSON line. Kernel times by
+    CUDA events. Uses only what earlier trees of the port have, so a copy
+    of this script beside an earlier tree's ``gpx_torch`` times both trees
+    alike."""
+    from gpx_torch.models import gp
+    from gpx_torch.ops import _build, cuda_chol, cuda_gram
+    from gpx_torch.ops import cuda_logml_grad as clg
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {"probe_ms": {}, "probe_bound_ms": {}, "gram_ms": {}}
+    kern = gt.se(3.0, 5.5) + gt.white(0.5)
+    x = torch.rand((N_BENCH, 1), generator=gen, device="cuda") * 20.0 - 10.0
+    alpha = torch.randn(N_BENCH, generator=gen, device="cuda") * 0.1
+    for s in (1, 8, 64, 128):
+        z = _rademacher(torch, (N_BENCH, s), gen)
+        u = torch.randn((N_BENCH, s), generator=gen, device="cuda") * 0.1
+        out["probe_ms"][f"s{s}"] = time_ms(
+            torch, lambda: clg.logml_probe_grads(kern, x, alpha, u, z), reps=10)
+        out["probe_bound_ms"][f"s{s}"] = [_probe_bound(N_BENCH, s)[0],
+                                          _probe_bound_fp32(N_BENCH, s)[0]]
+    mk = _families(gt)["matern52+white"]
+    x3 = torch.rand((N_BENCH, 3), generator=gen, device="cuda") * 20.0 - 10.0
+    u3 = x3 / torch.tensor(ELL3, device="cuda")
+    z = _rademacher(torch, (N_BENCH, 64), gen)
+    u = torch.randn((N_BENCH, 64), generator=gen, device="cuda") * 0.1
+    out["probe_ms"]["matern52+white ard d3 s64"] = time_ms(
+        torch, lambda: clg.logml_probe_grads(mk, u3, alpha, u, z, ard=True),
+        reps=10)
+    # logml_kernel_grads, whose epilogue the probe kernel shares: its times
+    # at N = 16,384 and its outputs in hex, so two trees' runs compare bit
+    # for bit
+    _, mg = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, x, nugget=1e-3))
+    cases = {"se+white": (kern, x, False), "matern52+white ard d3": (mk, u3, True)}
+    out["grad_ms"], out["grad_outputs_hex"] = {}, {}
+    for name, (gk, gx, ard) in cases.items():
+        out["grad_ms"][name] = time_ms(torch, lambda: clg.logml_kernel_grads(
+            gk, gx, alpha, mg, ard=ard), reps=5)
+        out["grad_outputs_hex"][name] = [v.hex() for v in _outputs(
+            gt, clg.logml_kernel_grads(gk, gx, alpha, mg, ard=ard))]
+    for d in (1, 2):
+        xd = torch.rand((N_BENCH, d), generator=gen, device="cuda") * 20.0 - 10.0
+        for name, fk in _families(gt).items():
+            out["gram_ms"][f"{name} d{d}"] = time_ms(
+                torch, lambda: cuda_gram.gram_cuda(fk, xd, nugget=1e-3), reps=10)
+    out["fill_ms"] = time_ms(torch, lambda: torch.empty(
+        (N_BENCH, N_BENCH), device="cuda").fill_(1.0), reps=10)
+    out["gram_bound_ms"] = bound_ms(nbytes=4.0 * N_BENCH * N_BENCH)[0]
+    l1 = _gram_l1_only(torch)
+    if l1 is not None:  # the Gram's two coordinate paths, in turns
+        tree = _build.function("gram", "gpx_gram", cuda_gram._ARGS)
+        out["gram_paths_ms"] = {}
+        for d in (9, 10, 11, 12, 20):
+            xd = torch.rand((N_BENCH, d), generator=gen, device="cuda") * 4.0 - 2.0
+            for name, fn in (("staged", tree), ("l1", l1), ("l1", l1),
+                             ("staged", tree)):
+                _build._fns[("gram", "gpx_gram")] = fn
+                out["gram_paths_ms"].setdefault(f"se+white d{d} {name}", []).append(
+                    time_ms(torch, lambda: cuda_gram.gram_cuda(kern, xd, nugget=1e-3),
+                            reps=10))
+        _build._fns[("gram", "gpx_gram")] = tree
+    del x, x3, u3, u, z, mg
+    torch.cuda.empty_cache()
+
+    params, xb, yb = _bench_case_cuda(torch, gt)
+    alpha_b, (u_p, z_p), (u_a, z_a) = _hybrid_probe_inputs(
+        torch, gt, gp, params.kernel, xb, yb)
+    bk = params.kernel
+    out["hybrid_probe_stage_ms"] = {
+        "s64": time_ms(torch, lambda: clg.logml_probe_grads(bk, xb, alpha_b, u_p, z_p),
+                       reps=10),
+        "s128_aug": time_ms(torch, lambda: clg.logml_probe_grads(
+            bk, xb, alpha_b, u_a, z_a), reps=10)}
+    out["hybrid_probe_stage_ms"]["both"] = sum(out["hybrid_probe_stage_ms"].values())
+    del alpha_b, u_p, z_p, u_a, z_a
+    torch.cuda.empty_cache()
+    out["hybrid_ms_per_eval"] = _median_ms(torch, lambda: gp.logml_value_and_grad(
+        params, xb, yb, method="hybrid", probes=64))
+    out["exact_ms_per_eval"] = _median_ms(torch, lambda: gp.logml_value_and_grad(
+        params, xb, yb))
+    print("kernel_times: " + json.dumps(out), flush=True)
     return out
 
 
@@ -2609,6 +2902,10 @@ def main() -> int:
     if "--matvec-times" in sys.argv[1:]:
         phase_matvec_times(torch, gt)
         print(f"total {time.perf_counter() - t0:.1f} s (matvec times)", flush=True)
+        return 0
+    if "--kernel-times" in sys.argv[1:]:
+        phase_kernel_times(torch, gt)
+        print(f"total {time.perf_counter() - t0:.1f} s (kernel times)", flush=True)
         return 0
     if "--bench-only" in sys.argv[1:]:
         records = {name: {} for name in _counters()}

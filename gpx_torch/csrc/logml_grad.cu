@@ -84,7 +84,7 @@ __device__ __noinline__ void quadrant_epilogue(
 #pragma unroll
     for (int c = 0; c < 4; ++c) kinv[r][c] = kq[(ty + 16 * r) * KTS + tx + 16 * c];
   gpx::grad_epilogue<ARD>(kinv, i0, j0, x, d, alpha, ts, n_terms, n_params,
-                          red, wkp, part);
+                          wkp, gpx::BlockSink{red, part});
 }
 
 template <bool VEC, bool ARD, int PASSES>

@@ -44,9 +44,10 @@ constexpr int SLAB_TILES = 2;   // k-tiles per fold: SLAB = 64
 constexpr int KPAD = 8;         // K-major rows hold BK + 8 floats
 constexpr int NPAD = 4;         // M- and N-major rows hold BN + 4 floats
 
-template <int BM_, int BN_, int WM_, int WN_>
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_ = STAGES>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int STAGES = STAGES_;  // the ring's depth
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int MI = BM / WM / 16;  // m16 fragments per warp
   static constexpr int NI = BN / WN / 8;   // n8 fragments per warp
@@ -55,7 +56,7 @@ struct Tile {
   static constexpr int A_FLOATS = BM * KS;
   static constexpr int B_FLOATS = (BN * KS > BK * NS) ? BN * KS : BK * NS;
   static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
-  static constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;  // the ring
 };
 using Big = Tile<128, 128, 2, 4>;   // 163,840 bytes of ring
 using Small = Tile<64, 64, 2, 2>;   // 81,920 bytes of ring
@@ -219,19 +220,34 @@ __device__ __forceinline__ void step_mmas(float (&d)[T::NI][4],
   for (int ni = 0; ni < T::NI; ++ni) mma(d[ni], ah, bh[ni]);
 }
 
+// The ring's first STAGES - 1 k-tiles of [k_lo, k_hi), one commit group
+// each (empty past the range): mainloop's prologue, or, with PRIMED, the
+// caller's, issued ahead (a persistent block primes its next tile before
+// the current tile's epilogue).
+template <class T, class Load>
+__device__ __forceinline__ void prime(Load&& load, int k_lo, int k_hi) {
+  const int nkt = (k_hi - k_lo + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < nkt) load(s, k_lo + s * BK);
+    cp_async_commit();
+  }
+}
+
 // The k loop of one block tile over [k_lo, k_hi): the ring, the MMAs and
 // the slab folds. `load(stage, k0)` issues the copies of the k-tile at k0
 // into ring stage `stage`; the A block of a stage comes first, its B block
 // A_FLOATS later. (wr, wc) is the warp's first row and column in the tile.
-// On return every copy has landed; the entry of fragment element q of
-// (mi, ni), row wr + 16 mi + g + 8 (q / 2), column wc + 8 ni + 2 t + q % 2,
-// is sum + acc.
+// PRIMED: the caller has run prime() for this range. On return every copy
+// has landed; the entry of fragment element q of (mi, ni), row wr + 16 mi
+// + g + 8 (q / 2), column wc + 8 ni + 2 t + q % 2, is sum + acc.
 template <class T, bool A_MMAJOR, bool B_KMAJOR, bool STEP_ROUND, int PASSES,
-          class Load>
+          bool PRIMED = false, class Load>
 __device__ __forceinline__ void mainloop(const float* smem, Load&& load,
                                          int k_lo, int k_hi, int wr, int wc,
                                          float (&acc)[T::MI][T::NI][4],
                                          float (&sum)[T::MI][T::NI][4]) {
+  constexpr int STAGES = T::STAGES;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -242,11 +258,7 @@ __device__ __forceinline__ void mainloop(const float* smem, Load&& load,
       for (int q = 0; q < 4; ++q) acc[mi][ni][q] = sum[mi][ni][q] = 0.0f;
 
   const int nkt = (k_hi - k_lo + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nkt) load(s, k_lo + s * BK);
-    cp_async_commit();
-  }
+  if (!PRIMED) prime<T>(load, k_lo, k_hi);
   for (int kt = 0; kt < nkt; ++kt) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();

@@ -259,7 +259,7 @@ struct FactorValues {
 
 // out[c] += K(r2[c]) = sum_g prod_{t in g} k_t(r2[c]), c < N. A product is
 // formed left to right, as the JAX package's Product forms it, at its
-// first factor. Without STAGED, in N more registers (the Gram's 4
+// first factor. Without STAGED, in N more registers (the Gram's 16
 // entries a thread); STAGED (`stage`: 2 N floats of shared memory a
 // thread, at stride `stride`), the entries pass through shared memory one
 // at a time, so that a wide thread (matvec's 32 entries) holds no more

@@ -14,20 +14,26 @@ and ``U = K^-1 Z``. With ``ard=True`` the coordinates are the ARD-scaled
 ``-2 sdot / ell``. ``logml_kernel_grads(fast=True)`` is gpx's 2-pass leg:
 the second operand of each ``K^-1`` product, ``L^-1``'s column block j,
 is rounded to TF32 and the first kept whole.
+
+:func:`probe_what_tf32x3` repeats the probe kernel's 3xTF32 product in
+float32 arithmetic, for the tests and ``chip_smoke.py`` only.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from gpx_torch.kernels import has_white
 from gpx_torch.ops import _build
+from gpx_torch.ops.cuda_matvec import tf32x3_product
 from gpx_torch.ops.cuda_trmm import round_tf32
 from gpx_torch.ops.distance import as_locations, sq_distances
 from gpx_torch.ops.terms import COLS, table_tensors
 from gpx_torch.params import leaves, unflatten
 
 TILE = 64  # csrc/tile_core.cuh: BM
+PROBE_KTILE = 32  # csrc/mma_tf32.cuh: BK, a product's depth rounds up to it
 MAX_OUTPUTS = 128  # the JAX package's (1, 128) output tile
 _ARGS = [_build.P, _build.L, _build.P, _build.I, _build.P, _build.I,
          _build.P, _build.I, _build.P, _build.I, _build.I, _build.I, _build.P,
@@ -150,6 +156,32 @@ def logml_probe_grads_reference(kernel, x, alpha, u, z, *, ard: bool = False):
     and its contraction, explicitly."""
     what = (u @ z.T + z @ u.T) * (0.5 / z.shape[1])
     return _contract_reference(kernel, x, alpha, what, ard)
+
+
+def probe_what_tf32x3(u, z, *, passes: int = 3):
+    """``what = (U Z^T + Z U^T) (0.5 / s)`` from float32 ``u`` and ``z``
+    ``(n, s)`` as ``csrc/logml_probe_grad.cu`` forms it: one 2s-deep
+    product of ``A = [U | Z]`` and ``B = [Z | U]``, each half padded with
+    zeros to whole 32-deep k-tiles, in the TF32 arithmetic of
+    :func:`tf32x3_product` (the same 64-deep slabs as the kernel's core,
+    ``csrc/mma_tf32.cuh``; ``passes=3``: lo*hi + hi*lo + hi*hi, 1: hi*hi
+    alone), then scaled by ``0.5 / s`` in float32. For the tests and
+    ``chip_smoke.py`` only."""
+    s = u.shape[1]
+    pad = (-s) % PROBE_KTILE
+    a = torch.cat([F.pad(u, (0, pad)), F.pad(z, (0, pad))], dim=1)
+    b = torch.cat([F.pad(z, (0, pad)), F.pad(u, (0, pad))], dim=1)
+    what = tf32x3_product(a, b.T, passes=passes)
+    return what * torch.tensor(0.5 / s, dtype=torch.float32)
+
+
+def logml_probe_grads_tf32x3(kernel, x, alpha, u, z, *, ard: bool = False,
+                             passes: int = 3):
+    """:func:`logml_probe_grads_reference` with ``W_hat`` from
+    :func:`probe_what_tf32x3`, contracted in the dtype of ``x``: the probe
+    kernel's product, and a plain contraction."""
+    what = probe_what_tf32x3(u.float(), z.float(), passes=passes)
+    return _contract_reference(kernel, x, alpha, what.to(x.dtype), ard)
 
 
 def logml_probe_grads(kernel, x, alpha, u, z, *, ard: bool = False):

@@ -87,10 +87,12 @@ def _cross_matvec_torch(kernel, x1, x2, v2, block: int = 2048):
                       for i0 in range(0, x1.shape[0], block)])
 
 
-SLAB = 64  # csrc/matvec.cu: MV_BK, the points between two folds
+# the k between two folds: csrc/matvec.cu's MV_BK, csrc/mma_tf32.cuh's
+# SLAB_TILES * BK
+SLAB = 64
 
 
-def _tf32_split(a):
+def tf32_split(a):
     """``(hi, lo)`` of float32 ``a``: ``a = hi + lo + O(2^-22 |a|)``, both
     rounded to TF32 to nearest, ties away (``csrc/mma_tf32.cuh``'s
     ``split``)."""
@@ -99,14 +101,15 @@ def _tf32_split(a):
     return hi, lo
 
 
-def _tf32x3_product(kb, v2, passes: int = 4):
-    """``kb @ v2`` as the kernel forms it from float32 ``kb`` (rows, N2) and
+def tf32x3_product(kb, v2, passes: int = 4):
+    """``kb @ v2`` as the kernels form it from float32 ``kb`` (rows, N2) and
     ``v2`` (N2, R): both split into TF32 hi/lo, the products lo*lo + lo*hi
     + hi*lo + hi*hi (``passes`` < 4 keeps the last ones: 1 is hi*hi
-    alone), each 64-point slab summed and rounded to float32, the slabs
-    summed in float64 and the result rounded to float32."""
+    alone), each 64-deep slab summed and rounded to float32, the slabs
+    summed in float64 and the result rounded to float32. The matvec's
+    plain versions and the probe kernel's (``cuda_logml_grad``) use it."""
     pad = (-kb.shape[1]) % SLAB
-    (kh, kl), (vh, vl) = _tf32_split(kb), _tf32_split(v2)
+    (kh, kl), (vh, vl) = tf32_split(kb), tf32_split(v2)
     pairs = ((kl, vl), (kl, vh), (kh, vl), (kh, vh))[4 - passes:]
     slabs = 0.0
     for a, b in pairs:
@@ -133,7 +136,7 @@ def _r2_as_kernel(xb, x2):
 def _gram_matvec_tf32x3_torch(kernel, x, v2, nugget, *, rows=None,
                               passes: int = 4):
     """``(K(x, x) + nugget I) @ v2`` in float32 with the kernel's TF32
-    arithmetic (:func:`_tf32x3_product`), for the first ``rows`` rows (all
+    arithmetic (:func:`tf32x3_product`), for the first ``rows`` rows (all
     by default): the CUDA kernel's second witness beside float64, for the
     tests and ``chip_smoke.py``. ``x`` is centred, as the kernel takes
     it."""
@@ -149,7 +152,7 @@ def _gram_matvec_tf32x3_torch(kernel, x, v2, nugget, *, rows=None,
             r2 = torch.where(diag, 0.0, _r2_as_kernel(xb, x))
             kb = kernel.evaluate_xx(xb, x, r2)
             kb = torch.where(diag, kb + nugget, kb)
-            out.append(_tf32x3_product(kb, v2, passes))
+            out.append(tf32x3_product(kb, v2, passes))
     return torch.cat(out)
 
 
@@ -163,7 +166,7 @@ def _cross_matvec_tf32x3_torch(kernel, x1, x2, v2, *, passes: int = 4):
         for i0 in range(0, x1.shape[0], block):
             xb = x1[i0:i0 + block]
             kb = kernel.evaluate_xx(xb, x2, _r2_as_kernel(xb, x2))
-            out.append(_tf32x3_product(kb, v2, passes))
+            out.append(tf32x3_product(kb, v2, passes))
     return torch.cat(out)
 
 

@@ -115,7 +115,7 @@ def test_tf32_split_rounds_to_nearest():
     rng = np.random.default_rng(3)
     a = torch.as_tensor(rng.normal(size=4096) * 10.0 ** rng.uniform(-6, 6, 4096),
                         dtype=torch.float32)
-    hi, lo = cm._tf32_split(a)
+    hi, lo = cm.tf32_split(a)
     for part in (hi, lo):
         assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
     a64, hi64 = a.double(), hi.double()

@@ -26,9 +26,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    products by level; chol_inv at base 64 and 128 on a padded Gram;
    then (``phase_families``) the Gram and gradient kernels on every other
    family of the term table (Matern 1/2 ... 7/2, RQ, Periodic, each plus
-   White, and SE * Periodic + White) against float64, the ARD leg at D = 3
-   in both gradient kernels, each family's times beside SE + White's, and
-   the ARD leg's cost at D = 3 and 16;
+   White, SE * Periodic + White, and F3 = (SE + Matern 3/2) * Periodic +
+   White, a Product of a Sum whose Periodic sits in two products of the
+   expansion) against float64, the ARD leg at D = 3 in both gradient
+   kernels (Ard(F3) among them), F3's probe kernel at s = 64, each
+   family's times beside SE + White's, and the ARD leg's cost at D = 3
+   and 16;
 3. the end-to-end bench case (numpy seed 0, x ~ U(-10, 10) of shape
    (16384, 1), y ~ N(0, 1), SE(3.0, 5.5) + White(0.5), float32) through
    ``gp.logml_value_and_grad``, held against the non-fused route run in
@@ -38,17 +41,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    through ``method="hybrid"`` (three probe seeds, and n = 9000), its
    launch counts, ms/eval and the times of its stages; then
    (``phase_families_e2e``) F1, SE(2, 3) * Matern(1, 5/2, 4) + White(0.1),
-   and F2, Ard(Matern(2, 5/2, 1) + White(0.25)) on D = 3, through the
-   exact path on the same data, F2 through the hybrid, and a Gram that is
-   not positive definite (NaN on both exact routes, -inf when safe);
+   F2, Ard(Matern(2, 5/2, 1) + White(0.25)) on D = 3, and F3 through the
+   exact path on the same data, F2 and F3 through the hybrid, a Product
+   of Sums past the term table (the torch.linalg route; the hybrid
+   raises), and a Gram that is not positive definite (NaN on both exact
+   routes, -inf when safe);
+3b. prediction (``phase_predict``, BASELINE config 5): ``gp.fit`` from the
+   bench data to the grid linspace(-10, 10, 16384), first as drawn (its
+   one coincident pair), then with the pair merged, for SE + White and F3
+   on the fused route (launch counts, mean and variance against float64
+   beside the float32 torch.linalg route, ms per fit on both routes, the
+   stages and the left_lower trmm against its bound), ``full_cov`` and
+   ``posterior_draw`` at M = 1024, ``draw`` at N = 16,384;
 4. the matrix-free path (``phase_iterative``, the case of
    ``examples/large_n.py``): the two matvec kernels against float64 and
    against their plain TF32 versions (SE + White at R = 1, 8, 9, 256,
-   Matern 3/2 + White, a product, D = 2, 12 and 20, a repeated call
+   Matern 3/2 + White, a product, F3, D = 2, 12 and 20, a repeated call
    bitwise; every family timed),
    ``gp_iterative.logml_value_and_grad_iterative`` at N = 32,768
    (three seeds) against the dense float64 logML and against the same
-   estimator in float64, one Matern 3/2 + White eval likewise,
+   estimator in float64, one Matern 3/2 + White eval and one F3 eval
+   likewise,
    ``fit_iterative`` against a dense float64 posterior, one eval at
    N = 131,072 with its memory, launch counts, stage times and ms/eval;
 5. the sampler slice (``phase_sampler``): the 2-pass legs (``fast=True``)
@@ -677,13 +690,36 @@ FAMILY_ULPS = 16.0
 # Periodic; expf, and log1pf for RQ; sinpif / cospif are FMA polynomials)
 SFU_PER_ENTRY = {"se+white": 1, "matern12+white": 2, "matern32+white": 2,
                  "matern52+white": 2, "matern72+white": 2, "rq+white": 2,
-                 "periodic+white": 2, "se*periodic+white": 3}
+                 "periodic+white": 2, "se*periodic+white": 3,
+                 "(se+matern32)*periodic+white": 4}
 ELL3 = [0.7, 2.3, 1.4]
+F3 = "(se+matern32)*periodic+white"
+
+
+def _f3(gt, dtype=None):
+    """F3, a Product of a Sum: (SE(2, 3) + Matern(1, 3/2, 2)) * Periodic(1,
+    2.5, 1.5) + White(0.1), on the card. The term table expands it to SE
+    Per + M3/2 Per + White: 5 rows in 3 products, Periodic's three
+    hyperparameters in two of them."""
+    kw = {"device": "cuda", "dtype": dtype}
+    return ((gt.se(2.0, 3.0, **kw) + gt.matern(1.0, 1.5, 2.0, **kw))
+            * gt.periodic(1.0, 2.5, 1.5, **kw) + gt.white(0.1, **kw))
+
+
+def _past_table(gt, dtype=None):
+    """A Product of Sums past the term table: 8 products of 3 factors, 24
+    rows against the table's 8."""
+    kw = {"device": "cuda", "dtype": dtype}
+    return ((gt.se(2.0, 3.0, **kw) + gt.matern(1.0, 1.5, 2.0, **kw))
+            * (gt.periodic(1.0, 2.5, 1.5, **kw)
+               + gt.rational_quadratic(1.0, 0.7, 2.0, **kw))
+            * (gt.se(1.0, 4.0, **kw) + gt.white(0.1, **kw)))
 
 
 def _families(gt, dtype=None):
-    """The kernels phase 2b holds: each family plus White, and one product
-    (name -> kernel on the card); SE + White, the bench's, first."""
+    """The kernels phase 2b holds: each family plus White, one product and
+    F3, a Product of a Sum (name -> kernel on the card); SE + White, the
+    bench's, first."""
     kw = {"device": "cuda", "dtype": dtype}
     return {
         "se+white": gt.se(3.0, 5.5, **kw) + gt.white(0.5, **kw),
@@ -696,6 +732,7 @@ def _families(gt, dtype=None):
         "periodic+white": gt.periodic(1.0, 3.1, 1.4, **kw) + gt.white(0.25, **kw),
         "se*periodic+white": gt.se(2.0, 3.0, **kw) * gt.periodic(1.0, 2.5, 4.0, **kw)
         + gt.white(0.25, **kw),
+        F3: _f3(gt, dtype),
     }
 
 
@@ -734,6 +771,7 @@ def phase_families(torch, gt):
     _, m16 = cuda_chol.chol_inv(cuda_gram.gram_cuda(
         _families(gt)["se+white"], x, nugget=1e-3))
     alpha16 = torch.randn(N_BENCH, generator=gen, device=dev) * 0.1
+    z16 = _rademacher(torch, (N_BENCH, 64), gen)
     out = {}
     for name, kern in _families(gt).items():
         if name != "se+white":
@@ -762,13 +800,17 @@ def phase_families(torch, gt):
         gram = time_ms(torch, lambda: cuda_gram.gram_cuda(kern, x, nugget=1e-3))
         grad = time_ms(torch, lambda: cuda_logml_grad.logml_kernel_grads(
             kern, x, alpha16, m16), reps=3)
+        probe = time_ms(torch, lambda: cuda_logml_grad.logml_probe_grads(
+            kern, x, alpha16, z16, z16), reps=5)
         gram_bound = bound_ms(nbytes=4.0 * N_BENCH * N_BENCH,
                               exps=float(SFU_PER_ENTRY[name]) * N_BENCH ** 2)
         out[name] = {"gram_ms": gram, "gram_bound_ms": gram_bound[0],
-                     "gram_bound_by": gram_bound[1], "grad_ms": grad}
+                     "gram_bound_by": gram_bound[1], "grad_ms": grad,
+                     "probe_s64_ms": probe}
         print(f"family {name} n={N_BENCH}: gram {gram:.3f} ms (bound "
               f"{gram_bound[0]:.3f} ms, {gram_bound[1]}); logml_kernel_grads "
-              f"{grad:.3f} ms", flush=True)
+              f"{grad:.3f} ms; logml_probe_grads s=64 {probe:.3f} ms", flush=True)
+    _f3_ard(torch, gt, x, u3, gen)
     # the ARD leg's cost: D more block sums per 64^2 tile
     kern = _families(gt)["matern52+white"]
     for d in (3, 16):
@@ -791,6 +833,32 @@ def phase_families(torch, gt):
     del m16
     torch.cuda.empty_cache()
     return out
+
+
+def _f3_ard(torch, gt, x, u3, gen) -> None:
+    """F3's probe kernel at s = 64 (n = 4096, D = 1, its own factor) and
+    Ard(F3)'s ARD leg in both gradient kernels at D = 3, each under _hold
+    with the float32 plain version as a second limit. Periodic of a 3-D
+    distance is not positive definite, so the ARD checks take L^-1 from
+    Matern 5/2 + White's Gram on the same scaled coordinates: the kernels
+    contract any W, and the check holds them to their plain version on
+    the same inputs. Periodic's gradients, from two products of the
+    expansion, are among the outputs held."""
+    from gpx_torch.ops import cuda_chol, cuda_gram
+
+    f3 = _f3(gt)
+    xs = x[:4096].contiguous()
+    _, m = cuda_chol.chol_inv(cuda_gram.gram_cuda(f3, xs, nugget=1e-3))
+    alpha = torch.randn(4096, generator=gen, device="cuda") * 0.1
+    z = _rademacher(torch, (4096, 64), gen)
+    _hold_probe(torch, gt, f3, xs, alpha, m.T @ (m @ z), z, label=f"{F3} ",
+                witness=True)
+    _, m = cuda_chol.chol_inv(cuda_gram.gram_cuda(
+        _families(gt)["matern52+white"], u3, nugget=1e-3))
+    _hold_grads(torch, gt, f3, u3, alpha, m, ard=True, label=f"ard({F3}) ",
+                witness=True)
+    _hold_probe(torch, gt, f3, u3, alpha, m.T @ (m @ z), z, ard=True,
+                label=f"ard({F3}) ", witness=True)
 
 
 def _chol_residuals(torch, k, l, m):
@@ -1120,6 +1188,17 @@ def phase_bench(torch, gt, records):
     v_rel, rel, h_abs = _against_f64(torch, gt, gp, x, y, value, grads,
                                      "bench")
     _value_terms(torch, gt, gp, params.kernel, x, y)
+    # the noise floor on the fused route: the 3-pass gradient (bitwise the
+    # call above) against the 2-pass one
+    g3, floor, flagged = gp.logml_gradient_noise_floor(params, x, y)
+    check(all(torch.equal(a, b) for a, b in zip(gt.params.leaves(g3),
+                                                gt.params.leaves(grads)))
+          and all(bool(torch.isfinite(f).all())
+                  for f in gt.params.leaves(floor)),
+          "noise floor: not the exact gradient, or not finite")
+    print("bench gradient noise floor (h, sigma, white): "
+          f"{[float(f) for f in gt.params.leaves(floor.kernel)]}, flagged "
+          f"{[bool(f) for f in gt.params.leaves(flagged.kernel)]}", flush=True)
     # off the tile grid: n = 9000 pads to 9088 (uneven Schur splits)
     n_off = 9000
     counters["logml_kernel_grads"].launches = 0
@@ -1236,61 +1315,107 @@ def _exact_family(torch, gt, gp, label, params, x, y):
 
 
 def phase_families_e2e(torch, gt):
-    """F1 and F2 at the bench's N = 16,384 (numpy seed 0, x ~ U(-10, 10),
-    y ~ N(0, 1), float32): F1 SE(2, 3) * Matern(1, 5/2, 4) + White(0.1) on
-    D = 1, F2 Ard(Matern(2, 5/2, 1) + White(0.25), [0.7, 2.3, 1.4]) on D =
-    3 (the JAX package's test kernels), exact (_exact_family); F2 also
-    through method="hybrid" for three probe seeds against the exact
-    float64, its errors recorded."""
+    """F1, F2 and F3 at the bench's N = 16,384 (numpy seed 0, x ~ U(-10,
+    10), y ~ N(0, 1), float32): F1 SE(2, 3) * Matern(1, 5/2, 4) + White(0.1)
+    on D = 1, F2 Ard(Matern(2, 5/2, 1) + White(0.25), [0.7, 2.3, 1.4]) on D
+    = 3 (the JAX package's test kernels), F3 (_f3, a Product of a Sum) on D
+    = 1, exact (_exact_family); F2 and F3 also through method="hybrid" for
+    three probe seeds against the exact float64, their errors recorded; a
+    Product of Sums past the term table (_past_table) on the torch.linalg
+    route, its hybrid raising."""
     from gpx_torch.models import gp
 
     out = {}
-    for label, d in (("F1", 1), ("F2", 3)):
+    for label, d in (("F1", 1), ("F2", 3), ("F3", 1)):
         rng = np.random.default_rng(0)
         x_np = rng.uniform(-10.0, 10.0, size=(N_BENCH, d)).astype(np.float32)
         y_np = rng.normal(size=N_BENCH).astype(np.float32)
-        kern = (gt.se(2.0, 3.0) * gt.matern(1.0, 2.5, 4.0) + gt.white(0.1)
-                if label == "F1" else
-                gt.ard(gt.matern(2.0, 2.5, 1.0) + gt.white(0.25), ELL3))
+        kern = {"F1": lambda: gt.se(2.0, 3.0) * gt.matern(1.0, 2.5, 4.0)
+                + gt.white(0.1),
+                "F2": lambda: gt.ard(gt.matern(2.0, 2.5, 1.0) + gt.white(0.25),
+                                     ELL3),
+                "F3": lambda: _f3(gt)}[label]()
         params = gt.Parameters(mean=gt.zero(), kernel=kern)
         x = torch.as_tensor(x_np, device="cuda")
         y = torch.as_tensor(y_np, device="cuda")
         out[label], want = _exact_family(torch, gt, gp, label, params, x, y)
         torch.cuda.empty_cache()
-        if label == "F1":
-            continue
-        counters = _counters()
-        hyb, names = {}, ["value"] + gt.params.names(kern)
-        for seed in (0, 1, 2):
-            for c in counters.values():
-                c.launches = 0
-            key = torch.Generator(device="cuda").manual_seed(seed)
-            res = gp.logml_value_and_grad(params, x, y, method="hybrid",
-                                          probes=64, probe_key=key)
-            torch.cuda.synchronize()
-            check(counters["logml_probe_grads"].launches == 2
-                  and counters["logml_kernel_grads"].launches == 0,
-                  "F2 hybrid: not the probe kernel twice")
-            got = _flat_result(gt, *res)
-            errs = [abs(g - w) for g, w in zip(got, want)]
-            rels = [e / abs(w) if w else math.inf for e, w in zip(errs, want)]
-            print(f"F2 hybrid seed {seed}: " + "; ".join(
-                f"{nm} {g:.6e} (f64 {w:.6e}, err {e:.3e}, rel {r:.3e})"
-                for nm, g, w, e, r in zip(names, got, want, errs, rels)),
-                flush=True)
-            check(all(math.isfinite(g) for g in got), "F2 hybrid: not finite")
-            for nm, e, r in zip(names, errs, rels):
-                w_ = hyb.setdefault(nm, {"err": 0.0, "rel": 0.0})
-                w_["err"], w_["rel"] = max(w_["err"], e), max(w_["rel"], r)
-        eval_ms, ms = _median_ms(torch, lambda: gp.logml_value_and_grad(
-            params, x, y, method="hybrid", probes=64))
-        print(f"F2 hybrid ms/eval (median of 5, CUDA events): {eval_ms:.2f} "
-              f"{ms}; worst of three seeds: {json.dumps(hyb)}", flush=True)
-        out["F2_hybrid"] = {"ms_per_eval": eval_ms, "worst": hyb}
+        if label != "F1":
+            out[f"{label}_hybrid"] = _family_hybrid(torch, gt, gp, label, params,
+                                                    x, y, want)
+        if label == "F3":  # F2's Ard has no stand-alone Gram stage
+            out["F3_hybrid"]["stages_ms"] = _hybrid_stages(torch, gt, gp, kern,
+                                                           x, y)
+        if label == "F3":
+            out["past_table"] = _past_table_route(torch, gt, gp, x, y)
         del x, y
         torch.cuda.empty_cache()
     out["not_spd"] = _not_spd(torch, gt, gp)
     return out
+
+
+def _family_hybrid(torch, gt, gp, label, params, x, y, want):
+    """A family through method="hybrid" (probes=64, the default deflation)
+    for three probe seeds: the probe kernel twice and the exact gradient
+    kernel never (launch counts), every output finite, each output's error
+    against the exact float64 ``want`` recorded; ms/eval."""
+    counters = _counters()
+    hyb, names = {}, ["value"] + gt.params.names(params.kernel)
+    for seed in (0, 1, 2):
+        for c in counters.values():
+            c.launches = 0
+        key = torch.Generator(device="cuda").manual_seed(seed)
+        res = gp.logml_value_and_grad(params, x, y, method="hybrid",
+                                      probes=64, probe_key=key)
+        torch.cuda.synchronize()
+        check(counters["logml_probe_grads"].launches == 2
+              and counters["logml_kernel_grads"].launches == 0,
+              f"{label} hybrid: not the probe kernel twice")
+        got = _flat_result(gt, *res)
+        errs = [abs(g - w) for g, w in zip(got, want)]
+        rels = [e / abs(w) if w else math.inf for e, w in zip(errs, want)]
+        print(f"{label} hybrid seed {seed}: " + "; ".join(
+            f"{nm} {g:.6e} (f64 {w:.6e}, err {e:.3e}, rel {r:.3e})"
+            for nm, g, w, e, r in zip(names, got, want, errs, rels)),
+            flush=True)
+        check(all(math.isfinite(g) for g in got), f"{label} hybrid: not finite")
+        for nm, e, r in zip(names, errs, rels):
+            w_ = hyb.setdefault(nm, {"err": 0.0, "rel": 0.0})
+            w_["err"], w_["rel"] = max(w_["err"], e), max(w_["rel"], r)
+    eval_ms, ms = _median_ms(torch, lambda: gp.logml_value_and_grad(
+        params, x, y, method="hybrid", probes=64))
+    print(f"{label} hybrid ms/eval (median of 5, CUDA events): {eval_ms:.2f} "
+          f"{ms}; worst of three seeds: {json.dumps(hyb)}", flush=True)
+    return {"ms_per_eval": eval_ms, "worst": hyb}
+
+
+def _past_table_route(torch, gt, gp, x, y):
+    """_past_table at n = 4096 (>= FUSED_MIN_N, so the kernel alone
+    decides): the exact path on the torch.linalg route (no Gram, leaf or
+    gradient kernel launched), finite; the hybrid raises
+    NotImplementedError naming the expansion's size."""
+    n = 4096
+    params = gt.Parameters(mean=gt.zero(), kernel=_past_table(gt))
+    check(not params.kernel.cuda_supported, "the table took 24 rows")
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    value, grads = gp.logml_value_and_grad(params, x[:n], y[:n])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    got = _flat_result(gt, value, grads)
+    print(f"past the table n={n}: launches {json.dumps(launches)}; value "
+          f"{got[0]:.8e}", flush=True)
+    check(not any(launches.values()), "past the table: a kernel launched")
+    check(all(math.isfinite(g) for g in got), "past the table: not finite")
+    try:
+        gp.logml_value_and_grad(params, x[:n], y[:n], method="hybrid")
+    except NotImplementedError as e:
+        print(f"past the table hybrid raises: {e}", flush=True)
+        check("24 factors" in str(e), "the message does not say why")
+    else:
+        check(False, "past the table: the hybrid did not raise")
+    return {"launches": launches, "value": got[0]}
 
 
 def _not_spd(torch, gt, gp):
@@ -1507,6 +1632,278 @@ def _against_f64(torch, gt, gp, x, y, value, grads, label):
     return v_rel, rel, abs(got[0] - want[0])
 
 
+# -- phase 3b: prediction ----------------------------------------------------
+
+N_COV = 1024  # full_cov's and posterior_draw's test points
+# the JAX package's TPU accuracy records of fit at N = M = 16k (PERF_TPU.md:
+# the mean within 2.6e-4 of its scale, the fused route's variance within
+# 6.4e-5), used as limits, of the largest |value| against float64
+MEAN_LIMIT, VAR_LIMIT = 2.6e-4, 6.4e-5
+
+
+def _fit64(gt, gp, params, x, y, xs, **kw):
+    """The oracle: gp.fit in float64 (the plain route) on the coordinates
+    the Gram kernel sees, x - c and xs - c with c the float32 mean of x
+    (gram_cuda centres so). Distances are translation-invariant, and the
+    float32 centring can merge a test point with a training point a float32
+    ulp away (as at xs = 0.17274007 and x = 0.17274006 here): White then
+    fires there on every float32 route, and on this oracle too."""
+    c = x.mean(dim=0, keepdim=True)
+    p64 = gt.Parameters(mean=gt.zero(), kernel=_f64_kernel(gt, params.kernel))
+    return gp.fit(p64, (x - c).double(), y.double(), (xs - c).double(), **kw)
+
+
+def _err_of_scale(got, want) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def _hold_predict(label, what, err, lin_err, limit) -> None:
+    """``err`` (of scale) within the JAX package's record ``limit``, or,
+    where the float32 torch.linalg route misses it too, within twice that
+    route's own error (as _hold takes the float32 plain version)."""
+    ok = err <= limit or (lin_err > limit and err <= 2.0 * lin_err)
+    print(f"{label} {what}: err {err:.3e} of scale (record {limit:g}); "
+          f"torch.linalg f32 {lin_err:.3e} (2x: {2.0 * lin_err:.3e})",
+          flush=True)
+    check(ok, f"{label} {what}: outside the record and worse than twice the "
+          f"torch.linalg route's error")
+
+
+def _fit_launches(torch, gp, params, x, y, xs):
+    """One fit with every counter set to 0 just before and read just after:
+    the fused route is 2 Gram launches (K and the cross block), chol_inv's
+    leaves, syrk_lower once and trmm three times per split (leaves - 1
+    splits), and one more trmm, the variance's left_lower."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    post = gp.fit(params, x, y, xs)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    splits = launches["chol_inv_tile_off"] - 1
+    check(launches["gram"] == 2 and splits == -(-x.shape[0] // 128) - 1
+          and launches["syrk_lower"] == splits
+          and launches["trmm"] == 3 * splits + 1
+          and launches["logml_kernel_grads"] == 0
+          and launches["logml_probe_grads"] == 0, "fit: not the fused route")
+    return post, launches
+
+
+def _predict_case(torch, gt, gp, label, params, x, y, xs):
+    """fit at N = M = 16,384 on the fused route (launch counts), its mean
+    and variance against the float64 plain route on the card from the
+    float32 coordinates the kernels see (_fit64), beside the float32
+    torch.linalg route; ms per fit on both routes, and the fused route's
+    stages."""
+    from gpx_torch.ops import cuda_chol, cuda_gram, cuda_trmm
+    from gpx_torch.ops.chol import cholesky, forward_solve
+
+    post, launches = _fit_launches(torch, gp, params, x, y, xs)
+    print(f"fit {label} n={x.shape[0]} m={xs.shape[0]} launches: "
+          f"{json.dumps(launches)}", flush=True)
+    want = _fit64(gt, gp, params, x, y, xs)
+    torch.cuda.empty_cache()
+    keep = gp.FUSED_MIN_N
+    gp.FUSED_MIN_N = x.shape[0] + 1
+    try:
+        lin = gp.fit(params, x, y, xs)
+        lin_ms = _median_ms(torch, lambda: gp.fit(params, x, y, xs), reps=3)
+    finally:
+        gp.FUSED_MIN_N = keep
+    errs = {"mean": _err_of_scale(post.mean, want.mean),
+            "variance": _err_of_scale(post.variance, want.variance),
+            "linalg_mean": _err_of_scale(lin.mean, want.mean),
+            "linalg_variance": _err_of_scale(lin.variance, want.variance)}
+    check(bool(torch.isfinite(post.mean).all() & torch.isfinite(post.variance).all()),
+          f"fit {label}: not finite")
+    _hold_predict(f"fit {label}", "mean", errs["mean"], errs["linalg_mean"],
+                  MEAN_LIMIT)
+    _hold_predict(f"fit {label}", "variance", errs["variance"],
+                  errs["linalg_variance"], VAR_LIMIT)
+    del want, lin
+    torch.cuda.empty_cache()
+    fit_ms = _median_ms(torch, lambda: gp.fit(params, x, y, xs))
+
+    # the fused route's stages, stand-alone
+    kern = params.kernel
+    kxx = cuda_gram.gram_cuda(kern, x, nugget=gp.PREDICT_NUGGET)
+    kxs = cuda_gram.gram_cuda(kern, x, xs)
+    # padded as _fused_fit_core pads them
+    pad = (-x.shape[0]) % 128
+    kxx_p = gp._pad_spd(kxx, pad)
+    kxs_p = torch.nn.functional.pad(kxs, (0, 0, 0, pad))
+    _, l_inv = cuda_chol.chol_inv(kxx_p)
+    r = torch.nn.functional.pad(y - params.mean(x), (0, pad))
+
+    def refine():
+        a = l_inv.T @ (l_inv @ r)
+        for _ in range(2):
+            a = a + l_inv.T @ (l_inv @ (r - kxx_p @ a))
+        return a
+
+    stages = {
+        "gram_K": time_ms(torch, lambda: cuda_gram.gram_cuda(
+            kern, x, nugget=gp.PREDICT_NUGGET), reps=3),
+        "gram_cross": time_ms(torch, lambda: cuda_gram.gram_cuda(kern, x, xs),
+                              reps=3),
+        "chol_inv": time_ms(torch, lambda: cuda_chol.chol_inv(kxx_p), reps=3),
+        "alpha_2_refinements": time_ms(torch, refine, reps=3),
+        "trmm_left_lower": time_ms(torch, lambda: cuda_trmm.trmm(
+            kxs_p, l_inv, mode="left_lower"), reps=3),
+    }
+    bound = bound_ms(tf32_flops=3.0 * kxs_p.shape[0] ** 2 * kxs_p.shape[1])
+    del l_inv, kxx_p, kxs_p
+    torch.cuda.empty_cache()
+    # the torch.linalg route's one solve for the whole (N, M) block: its
+    # memory beyond its own output
+    lmat = cholesky(kxx)
+    del kxx
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a = forward_solve(lmat, kxs)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - a.numel() * 4
+    del a, lmat, kxs
+    torch.cuda.empty_cache()
+    print(f"fit {label} n={x.shape[0]} m={xs.shape[0]}: fused {fit_ms[0]:.2f} ms per fit "
+          f"{fit_ms[1]}; torch.linalg f32 {lin_ms[0]:.2f} {lin_ms[1]} (median, "
+          f"CUDA events); stages (ms, stand-alone): {json.dumps(stages)}; "
+          f"trmm left_lower {stages['trmm_left_lower']:.3f} ms against its "
+          f"3xTF32 bound {bound[0]:.3f} ms; forward_solve of the whole block: "
+          f"{extra / 2**20:.1f} MiB beyond its output", flush=True)
+    return {"ms_per_fit": fit_ms, "linalg_ms_per_fit": lin_ms,
+            "launches": launches, "errors": errs, "stages_ms": stages,
+            "trmm_left_lower_bound_ms": bound[0],
+            "forward_solve_extra_mib": extra / 2**20}
+
+
+def _hold_draw(torch, label, got, mean, l, z) -> None:
+    """A draw against ``mean + z L^T`` recomputed from the same generator
+    seed, within 1e-5 of its scale (the same float32 operations)."""
+    want = mean + z @ l.T
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"{label}: shape {tuple(got.shape)}, against mean + z L^T: {err:.3e} "
+          f"of scale", flush=True)
+    check(bool(torch.isfinite(got).all()) and err <= 1e-5, f"{label} disagrees")
+
+
+def _predict_cov(torch, gt, gp, label, params, x, y, xs):
+    """full_cov at M = 1024 against float64 (the mean within the record;
+    the covariance within the variance record or twice the float32
+    torch.linalg marginal variance's error there), and posterior_draw held
+    as mean + z L^T."""
+    from gpx_torch.ops.chol import add_jitter, cholesky
+
+    mean, cov = gp.fit(params, x, y, xs, full_cov=True)
+    mean64, cov64 = _fit64(gt, gp, params, x, y, xs, full_cov=True)
+    keep = gp.FUSED_MIN_N
+    gp.FUSED_MIN_N = x.shape[0] + 1
+    try:
+        lin = gp.fit(params, x, y, xs)
+    finally:
+        gp.FUSED_MIN_N = keep
+    lin_var = _err_of_scale(lin.variance, torch.diagonal(cov64))
+    errs = {"mean": _err_of_scale(mean, mean64), "cov": _err_of_scale(cov, cov64),
+            "linalg_variance": lin_var}
+    _hold_predict(f"full_cov {label} m={N_COV}", "mean", errs["mean"],
+                  _err_of_scale(lin.mean, mean64), MEAN_LIMIT)
+    _hold_predict(f"full_cov {label} m={N_COV}", "cov", errs["cov"], lin_var,
+                  VAR_LIMIT)
+    got = gp.posterior_draw(torch.Generator(device="cuda").manual_seed(5),
+                            params, x, y, xs, shape=(4,))
+    z = torch.randn((4, N_COV), generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda")
+    _hold_draw(torch, f"posterior_draw {label} m={N_COV}", got, mean,
+               cholesky(add_jitter(cov, 1e-8)), z)
+    return errs
+
+
+def _predict_as_drawn(torch, gt, gp, params, x, y, xs):
+    """fit on the bench data as drawn, whose float32 x holds one coincident
+    pair. White fires on it, so K has two equal rows but for the nugget
+    (1e-6, 4 f32 ulps of K's diagonal 3.5): the pair's Schur pivot is ~2e-6,
+    inside the float32 factor's rounding of the n-term Schur sums. Whether
+    a float32 factor meets a negative pivot there (NaN, as on a Gram that
+    is not positive definite) is the rounding's draw, on either route:
+    both outcomes are printed, with each finite result's error against
+    float64, and a finite fused result is held to _hold_predict's limits.
+    The accuracy is held on the merged data (phase_predict)."""
+    post = gp.fit(params, x, y, xs)
+    want = _fit64(gt, gp, params, x, y, xs)
+    keep = gp.FUSED_MIN_N
+    gp.FUSED_MIN_N = N_BENCH + 1
+    try:
+        lin = gp.fit(params, x, y, xs)
+    finally:
+        gp.FUSED_MIN_N = keep
+    check(bool(torch.isfinite(want.mean).all()), "the float64 fit is not finite")
+    out = {}
+    for route, res in (("fused", post), ("linalg", lin)):
+        fin = bool(torch.isfinite(res.mean).all())
+        out[route] = {"finite": fin}
+        if fin:
+            out[route].update(mean=_err_of_scale(res.mean, want.mean),
+                              variance=_err_of_scale(res.variance, want.variance))
+    print(f"fit se+white as drawn (1 coincident pair) against float64, errors "
+          f"of scale: {json.dumps(out)}", flush=True)
+    if out["fused"]["finite"]:
+        for what, limit in (("mean", MEAN_LIMIT), ("variance", VAR_LIMIT)):
+            _hold_predict("fit se+white as drawn", what, out["fused"][what],
+                          out["linalg"].get(what, math.inf), limit)
+    return out
+
+
+def phase_predict(torch, gt):
+    """BASELINE config 5 at full width: the bench data and the test grid xs
+    = linspace(-10, 10, 16384). First fit on the data as drawn
+    (_predict_as_drawn: its one coincident pair). Then on the same data
+    with the pair merged (the second point dropped: N = 16,383, which the
+    fused route pads to 16,384), fit for SE(3.0, 5.5) + White(0.5) and F3
+    (_predict_case), and full_cov and posterior_draw at M = 1024
+    (_predict_cov); gp.draw at N = 16,384 on the data as drawn (its nugget,
+    1e-3, is above the pair's rounding), held as mean + z L^T with the
+    factor's backward error formed in float64."""
+    from gpx_torch.models import gp
+    from gpx_torch.ops.chol import cholesky
+
+    t0 = time.perf_counter()
+    params, x_np, y_np = _bench_case(gt)
+    x = torch.as_tensor(x_np, device="cuda")
+    y = torch.as_tensor(y_np, device="cuda")
+    xs = torch.linspace(-10.0, 10.0, N_BENCH, device="cuda")[:, None]
+    xc = torch.linspace(-10.0, 10.0, N_COV, device="cuda")[:, None]
+    out = {"as_drawn": _predict_as_drawn(torch, gt, gp, params, x, y, xs)}
+    first = np.sort(np.unique(x_np[:, 0], return_index=True)[1])
+    out["n_merged"] = int(first.size)
+    idx = torch.as_tensor(first, device="cuda")
+    xu, yu = x[idx].contiguous(), y[idx].contiguous()
+    for label, kern in (("se+white", params.kernel), ("F3", _f3(gt))):
+        p = gt.Parameters(mean=gt.zero(), kernel=kern)
+        out[label] = _predict_case(torch, gt, gp, label, p, xu, yu, xs)
+        out[label]["full_cov"] = _predict_cov(torch, gt, gp, label, p, xu, yu, xc)
+        torch.cuda.empty_cache()
+    del xu, yu
+    got = gp.draw(torch.Generator(device="cuda").manual_seed(6), params, x)
+    k = params.kernel.gram(x, nugget=gp.DRAW_NUGGET)
+    lmat = cholesky(k)
+    z = torch.randn((N_BENCH,), generator=torch.Generator(
+        device="cuda").manual_seed(6), device="cuda")
+    _hold_draw(torch, f"draw n={N_BENCH}", got, params.mean(x), lmat, z)
+    l64 = lmat.double()
+    back = float(torch.linalg.matrix_norm(l64 @ l64.T - k.double())
+                 / torch.linalg.matrix_norm(k.double()))
+    print(f"draw n={N_BENCH}: its factor's backward error ||L L^T - K|| / ||K|| "
+          f"{back:.3e} (limit 1e-5), formed in float64", flush=True)
+    check(back <= 1e-5, "draw: the factor's backward error")
+    out["draw_factor_backward_error"] = back
+    del k, lmat, l64
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase_predict: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # -- phase 4: the matrix-free path -------------------------------------------
 
 N_IT = 32768          # examples/large_n.py's iterative case
@@ -1563,7 +1960,7 @@ def _count(torch, fn):
 
 
 # Leaf terms of each family kernel (_families), for the matvec's FP32 bound
-TERMS = {"se*periodic+white": 3}
+TERMS = {"se*periodic+white": 3, F3: 5}
 
 
 def _matvec_bound(n1, n2, d, r, name="se+white"):
@@ -1705,6 +2102,23 @@ def _matvec_checks(torch, gt, records):
     gram_case(f"gram_matvec se*periodic+white n={N_RAGGED} d=1 r=9 (ragged)",
               xr[:, :1], torch.randn((N_RAGGED, 9), generator=gen, device="cuda"),
               kern=pk, k64=_f64_kernel(gt, pk))
+    # F3, a Product of a Sum (a leaf in two products of the expansion), at
+    # the path's width, and a Product of Sums past the table raising
+    fk = _f3(gt)
+    gram_case(f"gram_matvec {F3} n={N_IT} d=1 r=9", x,
+              torch.randn((N_IT, 9), generator=gen, device="cuda"), kern=fk,
+              k64=_f64_kernel(gt, fk))
+    cross_case(f"cross_matvec {F3} ({N_TEST}, {N_IT}) d=1 r=9", xs, x,
+               torch.randn((N_IT, 9), generator=gen, device="cuda"), kern=fk,
+               k64=_f64_kernel(gt, fk))
+    from gpx_torch.ops.matvec import gram_matvec
+    try:
+        gram_matvec(_past_table(gt), x[:1024],
+                    torch.ones((1024, 1), device="cuda"))
+    except NotImplementedError as e:
+        print(f"gram_matvec past the table raises: {e}", flush=True)
+    else:
+        check(False, "gram_matvec past the table did not raise")
     torch.cuda.empty_cache()
 
     # times at the path's shapes: CG's width r = 9 (alpha + 8 probes);
@@ -1749,6 +2163,8 @@ def _matvec_checks(torch, gt, records):
     lib = time_ms(torch, lambda: torch.matmul(kx, alpha), reps=20)
     bound = _matvec_bound(N_TEST, N_IT, 1, 1)
     old = _matvec_bound_fp32(N_TEST, N_IT, 1)
+    print(f"cross_matvec {F3} ({N_TEST}, {N_IT}) r=1: "
+          f"{t['cross_matvec_f3_ms']:.3f} ms", flush=True)
     print(f"cross_matvec ({N_TEST}, {N_IT}) r=1: kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, torch.matmul on a prebuilt K {lib:.3f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]}; FP32-FMA {old[0]:.4f})", flush=True)
@@ -1786,8 +2202,13 @@ def _matvec_times(torch, gt, gen):
     alpha = torch.randn((N_IT, 1), generator=gen, device="cuda")
     cross = time_ms(torch, lambda: cm.cross_matvec_cuda(kern, xsc, xc, alpha),
                     reps=20)
-    return {"gram_matvec_ms": times, "gram_matvec_ms_n131072_r9": big_ms,
-            "gram_matvec_family_ms": family_ms, "cross_matvec_ms": cross}
+    out = {"gram_matvec_ms": times, "gram_matvec_ms_n131072_r9": big_ms,
+           "gram_matvec_family_ms": family_ms, "cross_matvec_ms": cross}
+    if F3 in family_ms:
+        fk = _families(gt)[F3]
+        out["cross_matvec_f3_ms"] = time_ms(
+            torch, lambda: cm.cross_matvec_cuda(fk, xsc, xc, alpha), reps=20)
+    return out
 
 
 def phase_matvec_times(torch, gt):
@@ -2034,7 +2455,8 @@ def _flat(gt, res):
     return [float(res.value)] + [float(t) for t in gt.params.leaves(res.grads.kernel)]
 
 
-def _hold_logml(label, got, f64, dense, names=("value", "h", "sigma", "white")):
+def _hold_logml(label, got, f64, dense, names=("value", "h", "sigma", "white"),
+                kinds=("value", "h", "sigma", "white"), witness=None):
     """One seed's float32 result against the dense float64 logML and
     against the same estimator in float64 on the same noise.
 
@@ -2054,10 +2476,18 @@ def _hold_logml(label, got, f64, dense, names=("value", "h", "sigma", "white")):
     sigma 1e-2 and White 1e-3 relative (the probe solves stop at an
     absolute cg_tol, 1e-4 against the probes' norm of ~180), each relative
     to the larger of the float64 estimate and the dense value. ``names``
-    label the value, the amplitude, the lengthscale and White, in that
-    order (Matern's sigma and l hold as SE's h and sigma)."""
+    label the outputs and ``kinds`` give each its limit: the value, the
+    amplitude ("h"), the lengthscale ("sigma") and White, in that order for
+    the SE and Matern runs (Matern's sigma and l hold as SE's h and sigma);
+    "other" (F3's leaves) takes the exact path's envelope, 1e-2 relative
+    or 0.5 absolute, whichever is larger. ``witness``: the same estimator
+    in float32 with the matvec's plain TF32 version, on the same noise;
+    where it is
+    further from the float64 run than the limit, the limit becomes twice
+    its distance (float32's own rounding of the estimator, as _hold takes
+    the float32 plain version)."""
     worst = {}
-    for i, nm in enumerate(names):
+    for i, (nm, kind) in enumerate(zip(names, kinds)):
         g, w, d = got[i], f64[i], dense[i]
         limit = (5e-3 * abs(d) + 0.5) if i == 0 else (0.3 * abs(d) + 0.5)
         e32, e64 = abs(g - d), abs(w - d)
@@ -2066,11 +2496,17 @@ def _hold_logml(label, got, f64, dense, names=("value", "h", "sigma", "white")):
             limit, why = 2.0 * e64, "2 x the float64 estimator's error (variance at 8 probes)"
         same = abs(g - w)
         mag = max(abs(w), abs(d))  # a noisy estimate may sit near zero
-        same_limit = (1e-4 * mag, 0.5, 1e-2 * mag, 1e-3 * mag)[i]
+        same_limit = {"value": 1e-4 * mag, "h": 0.5, "sigma": 1e-2 * mag,
+                      "white": 1e-3 * mag,
+                      "other": max(1e-2 * mag, 0.5)}[kind]
+        wit = "" if witness is None else (
+            f"; float32 plain-TF32 witness {abs(witness[i] - w):.3e}")
+        if witness is not None:
+            same_limit = max(same_limit, 2.0 * abs(witness[i] - w))
         print(f"{label} {nm}: f32 {g:.8e} f64-estimator {w:.8e} dense-f64 {d:.8e}"
               f" | f32-dense {e32:.3e} (limit {limit:.3e}, {why}); f64-dense "
-              f"{e64:.3e}; f32-f64 same noise {same:.3e} (limit {same_limit:.3e})",
-              flush=True)
+              f"{e64:.3e}; f32-f64 same noise {same:.3e} (limit {same_limit:.3e})"
+              f"{wit}", flush=True)
         check(math.isfinite(g), f"{label} {nm}: not finite")
         check(e32 <= limit, f"{label} {nm}: outside the dense limit")
         check(same <= same_limit, f"{label} {nm}: float32 differs from the "
@@ -2186,6 +2622,8 @@ def phase_iterative(torch, gt, records):
     # float64 logML and the same estimator in float64; ms/eval ----------
     out["matern32"] = _iter_matern_run(torch, gt, gi, x, y, nug)
     torch.cuda.empty_cache()
+    out["f3"] = _iter_f3_run(torch, gt, gi, x, y, nug)
+    torch.cuda.empty_cache()
 
     # -- stand-alone stages at N = 32,768, each counted ------------------
     out["stages_ms"] = _iter_stages(torch, gt, gi, cm, params, x, y, xs, pn, iters,
@@ -2240,6 +2678,57 @@ def _iter_matern_run(torch, gt, gi, x, y, nug):
           f"events)", flush=True)
     return {"value": float(res.value), "launches": counts, "worst": worst,
             "ms_per_eval": eval_ms}
+
+
+def _iter_f3_run(torch, gt, gi, x, y, nug):
+    """One logml_value_and_grad_iterative at N = 32,768 with F3 (_f3) on
+    the example's data: the CUDA matvec by its launches, _hold_logml for
+    seed 0 with every leaf held as "other" but White, and the eval's ms."""
+    params = gt.Parameters(mean=gt.zero(), kernel=_f3(gt))
+    t0 = time.perf_counter()
+    res, counts = _count(torch, lambda: gi.logml_value_and_grad_iterative(
+        params, x, y, torch.Generator(device="cuda").manual_seed(0), **ITER))
+    eval_s = time.perf_counter() - t0
+    print(f"iterative logML {F3} n={N_IT} launches: {json.dumps(counts)}; CG "
+          f"{res.cg_iters} iterations, converged {res.cg_converged}; "
+          f"{1e3 * eval_s:.1f} ms (one eval, host clock)", flush=True)
+    check(counts["gram_matvec"] > 0 and counts["torch_route_calls"] == 2,
+          "the F3 logML did not run on the CUDA matvec")
+    check(res.cg_converged, "F3 logML: CG did not converge")
+    k64 = _f3(gt, torch.float64)
+    dense_v, dense_g, _ = _dense_logml64(torch, gt, x, y, nug, k64)
+    torch.cuda.empty_cache()
+    pn, sn = _iter_noise(torch, gi, 0, N_IT, ITER["n_probes"])
+    r64 = gi._logml_value_and_grad_iterative(
+        gt.Parameters(mean=gt.zero(), kernel=k64), x.double(), y.double(),
+        probe_noise=pn.double(), slq_noise=sn.double(),
+        lanczos_iters=ITER["lanczos_iters"], cg_tol=ITER["cg_tol"],
+        precond_rank=ITER["precond_rank"])
+    # the witness: the same estimator and noise in float32, its matvec the
+    # kernel's arithmetic in torch (the plain TF32 version), so that what
+    # float32 does to CG and Lanczos shows apart from the kernel
+    from gpx_torch.ops import cuda_matvec as cm
+    from gpx_torch.ops import matvec as tmv
+    route, plain = tmv._uses_cuda_kernel, tmv._gram_matvec_torch
+    tmv._uses_cuda_kernel = lambda kernel, x_: False
+    tmv._gram_matvec_torch = cm._gram_matvec_tf32x3_torch
+    try:
+        w32 = gi._logml_value_and_grad_iterative(
+            params, x, y, probe_noise=pn, slq_noise=sn,
+            lanczos_iters=ITER["lanczos_iters"], cg_tol=ITER["cg_tol"],
+            precond_rank=ITER["precond_rank"])
+    finally:
+        tmv._uses_cuda_kernel, tmv._gram_matvec_torch = route, plain
+    print(f"F3 iterative CG iterations: f32 {res.cg_iters}, f64 {r64.cg_iters}, "
+          f"f32 plain TF32 version {w32.cg_iters}", flush=True)
+    names = ["value"] + gt.params.names(k64)
+    kinds = ["value"] + ["white" if k == "white" else "other"
+                         for k in _leaf_kinds(gt, k64)]
+    worst = _hold_logml(f"logml {F3} n={N_IT} seed 0", _flat(gt, res),
+                        _flat(gt, r64), [dense_v] + dense_g, names=names,
+                        kinds=kinds, witness=_flat(gt, w32))
+    return {"value": float(res.value), "launches": counts, "worst": worst,
+            "cg_iters": res.cg_iters, "ms_one_eval_host": 1e3 * eval_s}
 
 
 def _hold_fit(torch, gt, gi, params, x, y, xs, post, fit_opts):
@@ -2922,6 +3411,7 @@ def main() -> int:
     summary["families"] = families
     summary["hybrid"] = phase_hybrid(torch, gt, records)
     summary["families_e2e"] = phase_families_e2e(torch, gt)
+    summary["predict"] = phase_predict(torch, gt)
     print(f"ms/eval at N = {N_BENCH}: exact {summary['ms_per_eval']:.2f}  "
           f"hybrid {summary['hybrid']['ms_per_eval']:.2f}", flush=True)
     if "--no-iterative" in sys.argv[1:]:

@@ -13,10 +13,12 @@
 // the nugget, and tr(W_hat). With ARD, x holds the scaled coordinates
 // u = x / ell and D more outputs follow: sdot_e = sum W dK/dr2 (u_ie -
 // u_je)^2, from which the caller forms the lengthscale gradients. Each of
-// the n_params + 2 (+ D) outputs goes to a sink: BlockSink writes the
-// tile's partial (logml_grad.cu), WarpSink adds each warp's share into a
-// per-warp sum in double that the block keeps across its tiles
-// (logml_probe_grad.cu). The sink's Acc is the type of each thread's
+// the n_params + 2 (+ D) outputs goes to a sink: BlockSink adds the
+// block's sum into the tile's partial (logml_grad.cu), WarpSink adds each
+// warp's share into a per-warp sum in double that the block keeps across
+// its tiles (logml_probe_grad.cu). Both add: a leaf that appears in several
+// products of the term table's expansion repeats its offset, and its
+// products' shares of one output arrive one after another, in row order. The sink's Acc is the type of each thread's
 // gradient sums: float for BlockSink; double for WarpSink, whose estimate
 // of W is noisy, so each gradient sums terms ~1e8 times its value (h at
 // the hybrid's bench case), and float sums there missed by 5x the 1e-2
@@ -41,15 +43,18 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;  // valid in thread 0
 }
 
-// The block's sum of v, written by thread 0 to part[o]: every thread of
-// the block calls it, in the same order
+// The block's sum of v, added by thread 0 into part[o], which thread 0
+// zeroed before the tile: every thread of the block calls it, in the same
+// order. 0 + sum is sum exactly (-0 becomes +0, which the double sum of the
+// partials, started at +0, cannot tell apart), so an output sent once
+// reaches the result with the bits a plain store gave it
 struct BlockSink {
   using Acc = float;
   float* red;
   float* part;
   __device__ __forceinline__ void operator()(int o, float v) const {
     const float sum = block_sum(v, red);
-    if (threadIdx.x == 0) part[o] = sum;
+    if (threadIdx.x == 0) part[o] += sum;
   }
 };
 

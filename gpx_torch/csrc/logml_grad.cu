@@ -83,6 +83,10 @@ __device__ __noinline__ void quadrant_epilogue(
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) kinv[r][c] = kq[(ty + 16 * r) * KTS + tx + 16 * c];
+  // the sink adds into the partials (a repeated leaf sends an output once
+  // per product); only thread 0 reads or writes them
+  if (threadIdx.x == 0)
+    for (int o = 0; o < n_params + 2 + (ARD ? d : 0); ++o) part[o] = 0.0f;
   gpx::grad_epilogue<ARD>(kinv, i0, j0, x, d, alpha, ts, n_terms, n_params,
                           wkp, gpx::BlockSink{red, part});
 }

@@ -1,11 +1,14 @@
 // The term table: a covariance kernel as the CUDA kernels read it.
 //
-// `table` holds (type, offset, aux, group) per leaf term and `params` the
-// hyperparameters in gpx_torch.params.leaves order; a term's parameters
-// start at its offset, `aux` is Matern's p for nu = p + 1/2, and terms with
-// one group index are the factors of one product (contiguous). The kernel
-// is sum_g prod_{t in g} k_t(r2). gpx_torch/ops/terms.py builds both arrays
-// and holds term_derivatives / term_dr2, the plain versions of grads below.
+// The kernel is expanded into a sum of products of leaves (gpx_torch/ops/
+// terms.py: every Product distributed over its Sums). `table` holds (type,
+// offset, aux, group) per factor and `params` the hyperparameters in
+// gpx_torch.params.leaves order, unexpanded; a factor's parameters start at
+// its offset (a leaf in several products repeats it), `aux` is Matern's p
+// for nu = p + 1/2, and factors with one group index are the factors of one
+// product (contiguous). The kernel is sum_g prod_{t in g} k_t(r2).
+// gpx_torch/ops/terms.py builds both arrays and holds term_values /
+// term_derivatives / term_dr2, the plain versions of value and grads below.
 //
 // Each family is a struct of two device functions: `value` (k(r2)) and
 // `grads` (k, dk/dtheta for up to three parameters, and dk/dr2, which the

@@ -12,10 +12,11 @@ a tile kernel; every kernel but general-``nu`` Matérn) and gates
 ``method="hybrid"`` as it does there. ``cuda_supported`` says whether the
 CUDA kernels' term table (:mod:`gpx_torch.ops.terms`) can evaluate the
 kernel: a leaf (SE, White, Matérn with half-integer ``nu``, RQ, Periodic),
-a ``Product`` of leaves, or a ``Sum`` of leaves and such ``Product``s, with
-at most :data:`MAX_TERMS` leaves. Every other kernel (general-``nu``
-Matérn, a ``Product`` that holds a ``Sum``, Linear) runs the plain torch
-route.
+or any tree of ``Sum``s and ``Product``s over such leaves whose expansion
+into a sum of products of leaves (every ``Product`` distributed over its
+``Sum``s) has at most :data:`MAX_TERMS` factors in all. Every other kernel
+(general-``nu`` Matérn, Linear, ``Ard`` below the top level, a tree that
+expands past the table) runs the plain torch route.
 """
 
 from __future__ import annotations
@@ -102,10 +103,10 @@ class Kernel(FieldModule):
         return torch.func.vmap(
             lambda xi: self.evaluate_xx(xi[None], xi[None], r2)[0, 0])(x)
 
-    def gram(self, x, x2=None, *, nugget: float = 0.0):
+    def gram(self, x, x2=None, *, nugget: float = 0.0, method: str = "auto"):
         from gpx_torch.ops.gram import gram
 
-        return gram(self, x, x2, nugget=nugget)
+        return gram(self, x, x2, nugget=nugget, method=method)
 
     def __add__(self, other):
         a = tuple(self.kernels) if isinstance(self, Sum) else (self,)
@@ -331,9 +332,7 @@ class Sum(Kernel):
 
     @property
     def cuda_supported(self) -> bool:
-        # the term table holds a sum of leaves and products of leaves
-        return _table_fits(self) and all(
-            k.cuda_supported and not isinstance(k, Sum) for k in self.kernels)
+        return _table_fits(self)
 
 
 class Product(Kernel):
@@ -367,17 +366,45 @@ class Product(Kernel):
 
     @property
     def cuda_supported(self) -> bool:
-        # a product of leaves: one group of the term table
-        return _table_fits(self) and all(
-            k.cuda_supported and not isinstance(k, (Sum, Product))
-            for k in self.kernels)
+        return _table_fits(self)
+
+
+def expanded_size(kernel) -> tuple[int, int]:
+    """``(products, factors)`` of ``kernel`` expanded into a sum of products
+    of leaves, counted without expanding: a ``Product`` of parts with
+    ``(m_i, f_i)`` has ``prod m_i`` products and ``sum_i f_i prod_{j != i}
+    m_j`` factors."""
+    if isinstance(kernel, Sum):
+        sizes = [expanded_size(k) for k in kernel.kernels]
+        return sum(m for m, _ in sizes), sum(f for _, f in sizes)
+    if isinstance(kernel, Product):
+        m, f = 1, 0
+        for km, kf in (expanded_size(k) for k in kernel.kernels):
+            m, f = m * km, f * km + kf * m
+        return m, f
+    return 1, 1
+
+
+def _leaves_supported(kernel) -> bool:
+    if isinstance(kernel, (Sum, Product)):
+        return all(_leaves_supported(k) for k in kernel.kernels)
+    return kernel.cuda_supported
 
 
 def _table_fits(kernel) -> bool:
-    """At most :data:`MAX_TERMS` leaves in the sum of products."""
-    parts = kernel.kernels if isinstance(kernel, Sum) else (kernel,)
-    return sum(len(k.kernels) if isinstance(k, Product) else 1
-               for k in parts) <= MAX_TERMS
+    """Every leaf has a device function and the expansion has at most
+    :data:`MAX_TERMS` factors, the term table's rows."""
+    return _leaves_supported(kernel) and expanded_size(kernel)[1] <= MAX_TERMS
+
+
+def table_miss(kernel) -> str:
+    """Why the CUDA term table does not hold ``kernel``, for error
+    messages."""
+    if not _leaves_supported(kernel):
+        return "a part of it has no CUDA device function"
+    return (f"its expansion into a sum of products has "
+            f"{expanded_size(kernel)[1]} factors, more than the term table's "
+            f"{MAX_TERMS}")
 
 
 def has_white(kernel) -> bool:

@@ -1,5 +1,5 @@
-"""Gaussian-process marginal likelihood and its gradient — the port of the
-main path of ``gpx/models/gp.py``.
+"""Gaussian-process marginal likelihood, its gradient, prediction and
+prior and posterior draws — the port of ``gpx/models/gp.py``.
 
 ``logml_value_and_grad(params, x, y)`` with ``method="analytic"`` is the
 path every user of the library reaches (samplers call it once per leapfrog
@@ -21,30 +21,41 @@ a pivoted-Cholesky basis (:func:`_logml_value_and_grad_hybrid`).
 :func:`log_marginal_likelihood_hybrid_vjp` package these as scalar
 functions whose autograd gradient is the analytic (or hybrid) one: the
 samplers of :mod:`gpx_torch.infer` differentiate through them.
+
+:func:`fit` is the posterior at test points (GPML Algorithm 2.1, batched).
+Under the same gate as the fused logML it runs the CUDA kernels: the Gram
+on K and on the cross block, ``chol_inv``, and one ``left_lower`` trmm for
+the variance; else ``torch.linalg``. :func:`draw` and
+:func:`posterior_draw` take a ``torch.Generator`` where the JAX package
+takes a key.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from gpx_torch._device import full_fp32
+from gpx_torch._device import as_tensor, full_fp32
+from gpx_torch.distributions import normal_interval
 from gpx_torch.ops.chol import (
-    back_solve, cholesky, forward_solve, spd_inverse_from_chol,
+    add_jitter, back_solve, cholesky, forward_solve, spd_inverse_from_chol,
 )
-from gpx_torch.kernels import Ard, Sum, has_white, split_noise
+from gpx_torch.kernels import Ard, Sum, has_white, split_noise, table_miss
 from gpx_torch.ops.cuda_chol import (
     LEAF, chol_inv, spine_solve_lower, spine_solve_lower_t,
 )
 from gpx_torch.ops.cuda_logml_grad import (
     TILE, logml_kernel_grads, logml_probe_grads,
 )
-from gpx_torch.ops.distance import check_xy
+from gpx_torch.ops.cuda_trmm import trmm
+from gpx_torch.ops.distance import as_locations, check_xy
 from gpx_torch.ops.gram import gram, uses_cuda_kernel
-from gpx_torch.params import Parameters, leaves, unflatten
+from gpx_torch.params import Parameters, from_array, leaves, unflatten
 
+DRAW_NUGGET = 1e-3  # the reference's draw nugget (GaussianProcess.scala:71)
 LOGML_NUGGET = 1e-3  # the reference's Tikhonov nugget (GaussianProcess.scala:117)
 PREDICT_NUGGET = 1e-6  # the reference's prediction nugget (Predict.scala:67)
 
@@ -55,6 +66,38 @@ PREDICT_NUGGET = 1e-6  # the reference's prediction nugget (Predict.scala:67)
 FUSED_MIN_N = 4096
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+class PosteriorSummary(NamedTuple):
+    """Marginal posterior at test locations (the reference's
+    ``Vector[(Location, Gaussian)]``, Predict.scala:61)."""
+
+    x: torch.Tensor         # (M, D) test locations
+    mean: torch.Tensor      # (M,)
+    variance: torch.Tensor  # (M,)
+
+    def interval(self, q):
+        """Credible bound at quantile ``q`` (Summarise.getInterval)."""
+        return normal_interval(self.mean, self.variance, q)
+
+
+def sample_points(key, start, end, n: int):
+    """Sorted uniform 1-D design points on ``key``'s device
+    (GaussianProcess.samplePoints)."""
+    u = torch.rand(n, generator=key, device=key.device)
+    return torch.sort(start + (end - start) * u).values
+
+
+def draw(key, params: Parameters, x, *, nugget: float = DRAW_NUGGET, shape=()):
+    """Draw from the GP prior at ``x``: ``mu + z L^T`` with ``L`` the
+    Cholesky factor of ``K + nugget I`` and ``z`` standard normal from the
+    generator ``key`` (on ``x``'s device), of shape ``(*shape, N)``."""
+    full_fp32()
+    x = as_locations(x)
+    l = cholesky(params.kernel.gram(x, nugget=nugget))
+    z = torch.randn((*shape, x.shape[0]), generator=key, dtype=l.dtype,
+                    device=l.device)
+    return params.mean(x) + z @ l.T
 
 
 def log_marginal_likelihood(params: Parameters, x, y, *,
@@ -299,8 +342,7 @@ def _logml_value_and_grad_hybrid(params: Parameters, x, y, nugget: float, *,
     if x.device.type == "cuda" and not base_kernel.cuda_supported:
         raise NotImplementedError(
             f"method='hybrid' on the card needs the CUDA term table to hold "
-            f"this {type(base_kernel).__name__} (a Product of a Sum is not "
-            f"ported yet)")
+            f"this {type(base_kernel).__name__}: {table_miss(base_kernel)}")
     ms = [t.detach().requires_grad_() for t in leaves(params.mean)]
     with torch.enable_grad():
         mean_val = unflatten(params.mean, ms)(x)
@@ -479,3 +521,160 @@ def _scalar_vjp(value_and_grad_fn, *, primal=None):
         return value_and_grad_fn(params)[0]
 
     return f
+
+
+def logml_gradient_noise_floor(params: Parameters, x, y, *,
+                               nugget: float = LOGML_NUGGET):
+    """``(grads, floor, flagged)``: the analytic gradient, an estimate of
+    the float32 noise floor of each component, and ``flagged = |grad| < 10
+    floor`` where a component is in its noise (a cancelling sum whose terms
+    are far larger than it, as h's at N = 16k).
+
+    On the fused route the gradient contraction runs on both legs, 3-pass
+    and 2-pass (``fast_gradients``): their difference is the 2-pass leg's
+    error, and the floor is it scaled by the ratio of the legs' precisions
+    (2^-21, the 3-pass products' f32 accumulation, over 2^-11, one operand
+    rounded to TF32). Off it (CPU tensors, float64, small n) the floor is
+    the measured ``|g - g64|`` against a float64 autograd oracle on the
+    CPU, O(n^3) on the host."""
+    x, y = check_xy(x, y)
+    if not _fused_gate(params.kernel, x):
+        return _noise_floor_x64(params, x, y, nugget)
+    _, g3 = logml_value_and_grad(params, x, y, nugget=nugget)
+    _, g2 = logml_value_and_grad(params, x, y, nugget=nugget,
+                                 fast_gradients=True)
+    ratio = 2.0 ** -21 / 2.0 ** -11
+    floor = [(a.float() - b.float()).abs() * ratio
+             for a, b in zip(leaves(g3), leaves(g2))]
+    return g3, unflatten(g3, floor), _flagged(g3, floor)
+
+
+def _flagged(grads, floor):
+    return unflatten(grads, [g.float().abs() < 10.0 * f
+                             for g, f in zip(leaves(grads), floor)])
+
+
+def _noise_floor_x64(params: Parameters, x, y, nugget: float):
+    """The off-fused leg of :func:`logml_gradient_noise_floor`: float64
+    autograd through the Cholesky on the CPU as the oracle."""
+    _, g = logml_value_and_grad(params, x, y, nugget=nugget)
+    ps = [t.detach().cpu().double().requires_grad_() for t in leaves(params)]
+    with torch.enable_grad():
+        value = log_marginal_likelihood(unflatten(params, ps),
+                                        x.detach().cpu().double(),
+                                        y.detach().cpu().double(),
+                                        nugget=nugget)
+        g64 = _grads_or_zeros(value, ps)
+    floor = [(a.float() - b.to(a.device).float()).abs()
+             for a, b in zip(leaves(g), g64)]
+    return g, unflatten(g, floor), _flagged(g, floor)
+
+
+def gram_of(kernel, x, nugget):
+    """The Gram the likelihood paths use (the automatic route)."""
+    return kernel.gram(x, nugget=nugget)
+
+
+def fit(params: Parameters, x, y, xs, *, nugget: float = PREDICT_NUGGET,
+        full_cov: bool = False):
+    """The GP posterior at test locations ``xs`` (GPML Algorithm 2.1,
+    batched; Predict.fit): a :class:`PosteriorSummary` of marginal means
+    and variances, or ``(mean, cov)`` with ``full_cov=True``.
+
+    On the fused route (:func:`_fused_gate`, not ``full_cov``): ``K`` and
+    ``K(x, xs)`` from the Gram kernel, padded as the fused logML pads
+    (:func:`_pad_spd`, the residual and the cross block with zero rows);
+    one ``chol_inv``; alpha through ``L^-1`` with two refinement steps (the
+    mean is a cancelling sum against alpha, and one step leaves a larger
+    ``K alpha - r`` residual than the triangular solves, as the JAX package
+    measured); the variance from ``A = L^-1 K(x, xs)`` by one
+    ``left_lower`` trmm, ``k(s, s) - |A_s|^2`` clamped at 0. Else
+    ``torch.linalg``: the Cholesky factor and triangular solves, one
+    solve for the whole ``(N, M)`` block. ``full_cov`` forms ``K(xs, xs) -
+    A^T A`` in full float32."""
+    full_fp32()
+    x, y = check_xy(x, y)
+    xs = as_locations(as_tensor(xs, device=x.device, dtype=x.dtype))
+    kern = params.kernel
+    kxx = kern.gram(x, nugget=nugget)
+    kxs = kern.gram(x, xs)
+    r = y - params.mean(x)
+    if _fused_gate(kern, x) and not full_cov:
+        alpha, a = _fused_fit_core(kxx, kxs, r)
+        del kxx
+        mean = params.mean(xs) + kxs.T @ alpha
+    else:
+        l = cholesky(kxx)
+        alpha = back_solve(l.T, forward_solve(l, r))
+        mean = params.mean(xs) + kxs.T @ alpha
+        a = forward_solve(l, kxs)
+        if full_cov:
+            return mean, kern.gram(xs) - a.T @ a
+    # k(s, s) - |a|^2 cancels to slightly negative in f32 where the
+    # posterior variance is ~0
+    var = torch.clamp_min(kern.diag(xs, dtype=mean.dtype)
+                          - torch.sum(a * a, dim=0), 0.0)
+    return PosteriorSummary(x=xs, mean=mean, variance=var)
+
+
+def _fused_fit_core(kxx, kxs, r):
+    """``(alpha, A)``: ``K^-1 r`` and ``L^-1 K(x, xs)`` on the fused route
+    (:func:`fit`). On CPU tensors every kernel call takes its plain
+    version."""
+    n = kxx.shape[0]
+    pad = (-n) % math.lcm(TILE, LEAF)
+    kxx_p = _pad_spd(kxx, pad) if pad else kxx
+    r_p = F.pad(r, (0, pad))
+    _, l_inv = chol_inv(kxx_p)
+    alpha = l_inv.T @ (l_inv @ r_p)
+    for _ in range(2):
+        alpha = alpha + l_inv.T @ (l_inv @ (r_p - kxx_p @ alpha))
+    a = trmm(F.pad(kxs, (0, 0, 0, pad)), l_inv, mode="left_lower")
+    return alpha[:n], a
+
+
+def predict(summary: PosteriorSummary, interval: float = 0.95):
+    """``(mean, lower, upper)`` (Predict.predict)."""
+    return (summary.mean, summary.interval(1.0 - interval),
+            summary.interval(interval))
+
+
+def posterior_draw(key, params: Parameters, x, y, xs, *,
+                   nugget: float = PREDICT_NUGGET, jitter: float = 1e-8,
+                   shape=()):
+    """A joint draw from the GP posterior at ``xs``, ``mean + z L^T`` with
+    ``L`` the Cholesky factor of the posterior covariance plus ``jitter
+    I`` and ``z`` standard normal from the generator ``key``."""
+    mean, cov = fit(params, x, y, xs, nugget=nugget, full_cov=True)
+    l = cholesky(add_jitter(cov, jitter))
+    z = torch.randn((*shape, mean.shape[0]), generator=key, dtype=l.dtype,
+                    device=l.device)
+    return mean + z @ l.T
+
+
+def posterior_predictive_curves(post_flat, template: Parameters, x, y, xs, *,
+                                n_curves: int = 20,
+                                nugget: float = PREDICT_NUGGET):
+    """Posterior-predictive mean curves from MCMC hyperparameter draws
+    (SimulatedGp.scala:197-247): ``post_flat`` of shape ``(chains, draws,
+    dim)`` or ``(draws, dim)``, every ``draws // n_curves``-th row fitted
+    in turn; returns ``(n_curves, M)`` means."""
+    leaf = leaves(template)[0]
+    flat = torch.as_tensor(post_flat).to(device=leaf.device, dtype=leaf.dtype)
+    if flat.ndim == 3:
+        flat = flat.reshape(-1, flat.shape[-1])
+    take = max(1, flat.shape[0] // n_curves)
+    return torch.stack([
+        fit(from_array_params(template, row), x, y, xs, nugget=nugget).mean
+        for row in flat[::take][:n_curves]])
+
+
+def from_array_params(template: Parameters, row):
+    return from_array(template, row)
+
+
+def get_intervals(mean, cov, interval: float):
+    """Marginal intervals of an MVN (Summarise.getIntervals)."""
+    var = torch.diagonal(cov)
+    return (normal_interval(mean, var, interval),
+            normal_interval(mean, var, 1.0 - interval))

@@ -61,3 +61,32 @@ def sq_distances(x1, x2=None, *, exact: bool = False):
         eye = torch.eye(r2.shape[0], dtype=torch.bool, device=r2.device)
         r2 = torch.where(eye, torch.zeros_like(r2), r2)
     return r2
+
+
+def distances(x1, x2=None):
+    """Pairwise Euclidean distances (the reference's distanceMatrix)."""
+    return torch.sqrt(sq_distances(x1, x2))
+
+
+def euclidean(a, b):
+    """Distance between two single locations (Location.euclidean,
+    Location.scala:27-33)."""
+    a, b = as_tensor(a), as_tensor(b)
+    return torch.sqrt(torch.sum((a - b.to(a.device)) ** 2))
+
+
+def locations_close(x1, x2, tol: float = 1e-3):
+    """The ``(N, M)`` mask of pairs whose coordinates all agree within
+    ``tol``: the reference's ``Eq[Location]`` (Location.scala:18-25)."""
+    x1, x2 = as_locations(x1), as_locations(x2)
+    return torch.all((x1[:, None, :] - x2[None, :, :].to(x1.device)).abs()
+                     <= tol, dim=-1)
+
+
+def match_locations(x1, x2, tol: float = 1e-3):
+    """Index of the first ``x2`` row within ``tol`` of each ``x1`` row, or
+    -1 (the reference's join of sensor sites to kriging grids)."""
+    close = locations_close(x1, x2, tol)
+    # argmax returns the first of equal maxima
+    first = torch.argmax(close.to(torch.int8), dim=1)
+    return torch.where(close.any(dim=1), first, -1)

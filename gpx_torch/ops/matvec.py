@@ -6,7 +6,8 @@ the iterative path (:mod:`gpx_torch.models.gp_iterative`) needs O(N (D + R))
 memory. A float32 CUDA tensor with a stationary, Pallas-safe kernel goes to
 the CUDA kernel (:mod:`gpx_torch.ops.cuda_matvec`), at any N and any number
 of columns, and raises ``NotImplementedError`` where the CUDA term table
-does not hold the kernel yet (a ``Product`` that holds a ``Sum``). CPU tensors, float64, and kernels that are
+does not hold the kernel (a tree that expands past its
+:data:`~gpx_torch.kernels.MAX_TERMS` factors). CPU tensors, float64, and kernels that are
 not stationary or not Pallas-safe (which the JAX package sends to XLA too)
 take the plain row-blocked torch route. A build or launch error raises.
 """
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from gpx_torch.kernels import unwrap_ard
+from gpx_torch.kernels import table_miss, unwrap_ard
 from gpx_torch.ops.cuda_matvec import (
     _cross_matvec_torch, _gram_matvec_torch, cross_matvec_cuda,
     gram_matvec_cuda,
@@ -34,7 +35,7 @@ def _uses_cuda_kernel(kernel, x) -> bool:
     if not kernel.cuda_supported:
         raise NotImplementedError(
             f"the matvec on the card needs the CUDA term table to hold this "
-            f"{type(kernel).__name__} (a Product of a Sum is not ported yet)")
+            f"{type(kernel).__name__}: {table_miss(kernel)}")
     return True
 
 

@@ -1,18 +1,30 @@
 """The term table: how the CUDA kernels read a covariance kernel.
 
-A kernel that is ``cuda_supported`` is a sum of products of leaf terms
-(a lone leaf is a product of one). The CUDA Gram, matvec and gradient
-kernels take it as two small device arrays: ``table`` holds one
-``(type, offset, aux, group)`` row per leaf, and ``params`` the
-hyperparameters in :func:`gpx_torch.params.leaves` order, where ``offset``
-points at the leaf's first one; ``aux`` is Matérn's ``p`` for
-``nu = p + 1/2`` (0 for the other families) and ``group`` numbers the
-product the leaf belongs to. The device value is ``sum_g prod_{t in g}
-k_t(r2)``. Gradient outputs use the same indices as ``params``.
+A kernel that is ``cuda_supported`` is a tree of sums and products over
+leaf terms. The table holds its expansion into a sum of products of
+leaves: every ``Product`` distributed over its ``Sum``s, recursively, each
+product keeping its factors left to right (``(A + B) * C`` becomes ``A C +
+B C``). The CUDA Gram, matvec and gradient kernels take it as two small
+device arrays: ``table`` holds one ``(type, offset, aux, group)`` row per
+factor, and ``params`` the hyperparameters in
+:func:`gpx_torch.params.leaves` order, unexpanded, where ``offset`` points
+at the factor's leaf's first one (a leaf that appears in several products
+repeats its offset); ``aux`` is Matérn's ``p`` for ``nu = p + 1/2`` (0 for
+the other families) and ``group`` numbers the product the factor belongs
+to. The device value is ``sum_g prod_{t in g} k_t(r2)``. Gradient outputs
+use the same indices as ``params``: a repeated leaf's per-product
+derivatives add into its one entry.
 
-:func:`term_derivatives` and :func:`term_dr2` are the plain versions of the
-device functions' ``dK/dtheta`` and ``dK/dr2`` (``csrc/terms.cuh``); the
-tests hold them against torch autograd of ``evaluate_r2``.
+The expansion rounds differently from the tree (float32 ``A C + B C`` in
+place of ``(A + B) C``) but cancels nothing: every family's value is >= 0,
+so each product and each sum of them is a sum of non-negative terms, and
+the expansion's rounding stays within a few f32 ulps of ``|K|``, the
+envelope every Gram entry is held to.
+
+:func:`term_values`, :func:`term_derivatives` and :func:`term_dr2` are the
+plain versions of the device functions' ``K``, ``dK/dtheta`` and
+``dK/dr2`` (``csrc/terms.cuh``); the tests hold them against torch
+autograd of ``evaluate_r2``.
 """
 
 from __future__ import annotations
@@ -23,7 +35,7 @@ import torch
 
 from gpx_torch.kernels import (
     MAX_TERMS, Matern, Periodic, Product, RationalQuadratic, SquaredExponential,
-    Sum, White,
+    Sum, White, expanded_size,
 )
 from gpx_torch.params import leaves
 
@@ -33,10 +45,24 @@ _FAMILIES = ((SquaredExponential, SE, 2), (White, WHITE, 1), (Matern, MATERN, 2)
              (RationalQuadratic, RQ, 3), (Periodic, PERIODIC, 3))
 
 
-def _groups(kernel) -> list[tuple]:
-    """The leaves of ``kernel`` grouped by product, in leaves order."""
-    parts = tuple(kernel.kernels) if isinstance(kernel, Sum) else (kernel,)
-    return [tuple(p.kernels) if isinstance(p, Product) else (p,) for p in parts]
+def _products(kernel, off: int = 0):
+    """``(products, next offset)``: ``kernel`` expanded into a list of
+    products, each a tuple of ``(leaf, offset)`` factors, the offsets those
+    of the leaves in :func:`leaves` order from ``off``."""
+    if isinstance(kernel, Sum):
+        out = []
+        for k in kernel.kernels:
+            part, off = _products(k, off)
+            out += part
+        return out, off
+    if isinstance(kernel, Product):
+        out = [()]
+        for k in kernel.kernels:
+            part, off = _products(k, off)
+            out = [a + b for a in out for b in part]
+        return out, off
+    _, arity = _family(kernel)
+    return [((kernel, off),)], off + arity
 
 
 def _family(term) -> tuple[int, int]:
@@ -52,15 +78,15 @@ def terms(kernel) -> list[tuple[int, int, object]]:
 
 
 def _rows(kernel):
-    out, off = [], 0
-    for g, group in enumerate(_groups(kernel)):
-        for term in group:
-            typ, arity = _family(term)
+    """``(type, offset, aux, group, leaf)`` per factor of the expansion."""
+    if expanded_size(kernel)[1] > MAX_TERMS:
+        raise ValueError(f"more than {MAX_TERMS} terms in the expansion")
+    out = []
+    for g, product in enumerate(_products(kernel)[0]):
+        for term, off in product:
+            typ, _ = _family(term)
             aux = term._half_integer_p if typ == MATERN else 0
             out.append((typ, off, aux, g, term))
-            off += arity
-    if len(out) > MAX_TERMS:
-        raise ValueError(f"more than {MAX_TERMS} terms")
     return out
 
 
@@ -147,10 +173,10 @@ def _leaf(typ, term, r2):
 
 
 def _expand(kernel, r2):
-    """Per group, per leaf: ``(k, [dk/dtheta], dk/dr2)``."""
+    """Per product, per factor: ``(offset, (k, [dk/dtheta], dk/dr2))``."""
     out: dict[int, list] = {}
-    for typ, _, _, g, term in _rows(kernel):
-        out.setdefault(g, []).append(_leaf(typ, term, r2))
+    for typ, off, _, g, term in _rows(kernel):
+        out.setdefault(g, []).append((off, _leaf(typ, term, r2)))
     return list(out.values())
 
 
@@ -165,18 +191,33 @@ def _others(vals, t):
     return 1.0 if out is None else out
 
 
+def term_values(kernel, r2) -> torch.Tensor:
+    """``K(r2) = sum_g prod_{t in g} k_t(r2)``, each product left to right
+    and the products added in table order, as the device functions form
+    it."""
+    out = torch.zeros_like(r2)
+    for group in _expand(kernel, r2):
+        prod = None
+        for _, (v, _, _) in group:
+            prod = v if prod is None else prod * v
+        out = out + prod
+    return out
+
+
 def term_derivatives(kernel, r2) -> list[torch.Tensor]:
     """``dK/dtheta_p`` at ``r2`` for each hyperparameter (in leaves order),
-    by the explicit formulas of the device functions and the product rule.
+    by the explicit formulas of the device functions and the product rule;
+    a leaf in several products sums its products' terms in table order.
     SE ``h exp(-r2/s^2)`` gives ``d/dh = e`` and ``d/ds = h e 2 r2 / s^3``;
     White ``s [r2 == 0]`` gives ``d/ds = [r2 == 0]``; Matérn, RQ and
     Periodic as in :func:`_leaf`."""
-    out = []
+    out = [None] * len(leaves(kernel))
     for group in _expand(kernel, r2):
-        vals = [v for v, _, _ in group]
-        for t, (_, grads, _) in enumerate(group):
+        vals = [v for _, (v, _, _) in group]
+        for t, (off, (_, grads, _)) in enumerate(group):
             o = _others(vals, t)
-            out += [g * o for g in grads]
+            for q, g in enumerate(grads):
+                out[off + q] = g * o if out[off + q] is None else out[off + q] + g * o
     return out
 
 
@@ -187,8 +228,8 @@ def term_dr2(kernel, r2, *, absolute: bool = False) -> torch.Tensor:
     there). ``absolute``: the sum of the terms' magnitudes instead."""
     out = torch.zeros_like(r2)
     for group in _expand(kernel, r2):
-        vals = [v for v, _, _ in group]
-        for t, (_, _, kp) in enumerate(group):
+        vals = [v for _, (v, _, _) in group]
+        for t, (_, (_, _, kp)) in enumerate(group):
             term = kp * _others(vals, t)
             out = out + (term.abs() if absolute else term)
     return out

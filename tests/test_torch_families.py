@@ -232,21 +232,25 @@ def test_params_from_numpy_carries_families():
 
 
 def test_card_gates_by_structure():
-    """What the CUDA term table takes (a Product of a Sum stays on the
-    torch route), the gates on a float32 card tensor (a stand-in: they read
-    only its device, type and shape), and the 128-output limit."""
+    """What the CUDA term table takes (a Product of Sums that expands past
+    its 8 factors stays on the torch route), the gates on a float32 card
+    tensor (a stand-in: they read only its device, type and shape), and the
+    128-output limit."""
     f32 = dict(device="cpu", dtype=torch.float32)
     se, wh = gt.se(1.0, 2.0, **f32), gt.white(0.5, **f32)
     per = gt.periodic(1.0, 3.0, 2.0, **f32)
+    past = gt.Product(((se + wh), (per + se), (se + wh)))  # 8 x 3 factors
     assert (se * per + wh).cuda_supported and (se * per).cuda_supported
-    assert not gt.Product(((se + wh), per)).cuda_supported
+    assert gt.Product(((se + wh), per)).cuda_supported
+    assert not past.cuda_supported
     assert not gt.matern(1.0, 1.3, 2.0, **f32).cuda_supported
     assert not gt.Sum((se,) * 9).cuda_supported  # more than 8 terms
     on_card = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32,
                               shape=(gp.FUSED_MIN_N, 3))
     ard = gt.ard(gt.matern(2.0, 2.5, 1.0, **f32) + wh, ELL, **f32)
     assert gp._fused_gate(ard, on_card)
-    assert not gp._fused_gate(gt.Product(((se + wh), per)), on_card)
+    assert gp._fused_gate(gt.Product(((se + wh), per)), on_card)
+    assert not gp._fused_gate(past, on_card)
     gp._hybrid_gate(ard)
     x = torch.zeros((64, 127), dtype=torch.float64)
     with pytest.raises(ValueError, match="128"):

@@ -40,3 +40,20 @@ def full_fp32() -> None:
     ``Precision.HIGHEST`` on these, and TF32 keeps about three digits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def seeds(key, n: int) -> list[int]:
+    """``n`` seeds drawn from ``key``, an int seed or a ``torch.Generator``
+    (which advances): where the JAX package splits a key."""
+    gen = key
+    if not isinstance(key, torch.Generator):
+        gen = torch.Generator().manual_seed(int(key))
+    return torch.randint(0, 2 ** 62, (n,), generator=gen,
+                         device=gen.device).tolist()
+
+
+def generators(key, n: int, device) -> list[torch.Generator]:
+    """``n`` generators on ``device``, seeded from :func:`seeds` of
+    ``key``."""
+    return [torch.Generator(device=device).manual_seed(s)
+            for s in seeds(key, n)]

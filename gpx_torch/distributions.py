@@ -176,6 +176,96 @@ class StudentT(FieldModule):
         chi2 = 2.0 * _standard_gamma(self.df / 2.0, shape, generator)
         return self.loc + self.scale * z * torch.rsqrt(chi2 / self.df)
 
+    def cdf(self, x):
+        """``F(t) = 1 - I_{df/(df+t^2)}(df/2, 1/2) / 2`` for ``t >= 0``, by
+        the regularized incomplete beta (:func:`betainc`)."""
+        z = (torch.as_tensor(x, dtype=self.loc.dtype, device=self.loc.device)
+             - self.loc) / self.scale
+        w = betainc(0.5 * self.df, torch.full_like(self.df, 0.5),
+                    self.df / (self.df + z * z))
+        return torch.where(z >= 0, 1.0 - 0.5 * w, 0.5 * w)
+
+    def ppf(self, q):
+        """Inverse CDF by 90 bisections of the standardized bracket [-1e8,
+        1e8] on :meth:`cdf`, as the JAX package (it has no incomplete-beta
+        inverse either): f64 precision for ``df >= 0.5`` and ``q`` in
+        (1e-9, 1 - 1e-9)."""
+        q = torch.as_tensor(q, dtype=self.loc.dtype, device=self.loc.device)
+        std = StudentT(df=self.df, loc=torch.zeros_like(self.loc),
+                       scale=torch.ones_like(self.scale))
+        shape = torch.broadcast_shapes(q.shape, self.df.shape, self.loc.shape,
+                                       self.scale.shape)
+        lo = torch.full(shape, -1e8, dtype=q.dtype, device=q.device)
+        hi = -lo
+        for _ in range(90):
+            mid = 0.5 * (lo + hi)
+            below = std.cdf(mid) < q
+            lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+        return self.loc + self.scale * 0.5 * (lo + hi)
+
+
+# Lentz steps of the continued fraction: against scipy, 1e-15 absolute for
+# a <= 50, 7e-14 at a = 500 and 5e-12 at a = 5000 (Student-t df = 2a)
+_BETACF_STEPS = 48
+
+
+def _betacf(a, b, x):
+    """The continued fraction of ``I_x(a, b)`` (Numerical Recipes §6.4,
+    modified Lentz), a fixed number of steps; it converges fast for ``x <
+    (a + 1) / (a + b + 2)``."""
+    tiny = 1e-300 if x.dtype == torch.float64 else 1e-30
+
+    def guard(v):
+        return torch.where(torch.abs(v) < tiny, tiny, v)
+
+    qab, qap, qam = a + b, a + 1.0, a - 1.0
+    c = torch.ones_like(x)
+    d = 1.0 / guard(1.0 - qab * x / qap)
+    h = d
+    for m in range(1, _BETACF_STEPS + 1):
+        m2 = 2 * m
+        aa = m * (b - m) * x / ((qam + m2) * (a + m2))
+        d = 1.0 / guard(1.0 + aa * d)
+        c = guard(1.0 + aa / c)
+        h = h * d * c
+        aa = -(a + m) * (qab + m) * x / ((a + m2) * (qap + m2))
+        d = 1.0 / guard(1.0 + aa * d)
+        c = guard(1.0 + aa / c)
+        h = h * d * c
+    return h
+
+
+def betainc(a, b, x):
+    """The regularized incomplete beta ``I_x(a, b)`` for ``a, b > 0`` and
+    ``0 <= x <= 1``, in plain torch (torch has none): the continued
+    fraction where it converges fast, through the symmetry ``I_x(a, b) = 1
+    - I_{1-x}(b, a)`` elsewhere (the arguments swapped per element before
+    the one fraction runs), on inputs held inside (0, 1); the ends are
+    exactly 0 and 1."""
+    a, b, x = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b),
+                                      torch.as_tensor(x))
+    inner = (x > 0) & (x < 1)
+    xs = torch.where(inner, x, 0.5)
+    front = torch.exp(torch.lgamma(a + b) - torch.lgamma(a) - torch.lgamma(b)
+                      + a * torch.log(xs) + b * torch.log1p(-xs))
+    swap = xs >= (a + 1.0) / (a + b + 2.0)
+    aa, bb = torch.where(swap, b, a), torch.where(swap, a, b)
+    part = front * _betacf(aa, bb, torch.where(swap, 1.0 - xs, xs)) / aa
+    val = torch.where(swap, 1.0 - part, part)
+    return torch.where(inner, val, torch.where(x <= 0, 0.0, 1.0))
+
+
+def student_t_interval(mean, scale, df, q):
+    """Student-t inverse-CDF interval of the conjugate filter's forecasts,
+    the t analog of :func:`normal_interval`. A ``mean`` that is not a
+    tensor goes to the card."""
+    mean = as_tensor(mean)
+    if not mean.is_floating_point():
+        mean = mean.to(torch.get_default_dtype())
+    scale, df = (torch.as_tensor(v, dtype=mean.dtype, device=mean.device)
+                 for v in (scale, df))
+    return StudentT(df=df, loc=mean, scale=scale).ppf(q)
+
 
 def normal_interval(mean, variance, q):
     """Gaussian inverse-CDF interval (Summarise.getInterval,

@@ -1,13 +1,17 @@
-"""GP hyperparameter inference by HMC — the port of ``sample_hmc`` and
-``sample_hmc_log_density`` of ``gpx/infer/mcmc.py`` (the reference's
-``KernelParameters.sampleHmc``, KernelParameters.scala:121-154).
+"""GP hyperparameter inference entry points — the port of
+``gpx/infer/mcmc.py``: random-walk MH, HMC, NUTS, eHMC and
+MH-within-Gibbs (the reference's
+``KernelParameters.sample/sampleHmc/sampleEhmc``, KernelParameters.scala:
+121-246, and ``Mcmc.sample``, Mcmc.scala:63-76), each with a
+bring-your-own-likelihood core ``sample_*_log_density``.
 
 Differences from the JAX package, by design of the port:
-- ``key`` is a ``torch.Generator`` or an int seed. Three seeds drawn from
-  it start the inits, the warmups and the sampling; each chain gets its
-  own generators, seeded from those, on the parameters' device.
+- ``key`` is a ``torch.Generator`` or an int seed. Seeds drawn from it
+  start the inits, (for HMC) the warmups and the sampling; each chain gets
+  its own generators, seeded from those, on the parameters' device.
 - Chains run back to back (gpx's ``sequential=True``): one fused
-  evaluation already fills the card.
+  evaluation already fills the card. ``sequential=`` is accepted and
+  ignored where gpx takes it.
 - ``chunk_iters=`` and ``program_cache=`` bound and cache compiled XLA
   programs; the port compiles nothing, so they are accepted and ignored
   (``chunk_iters < 1`` still raises, as in gpx). ``mesh=`` raises
@@ -23,7 +27,10 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from gpx_torch import params as gparams
-from gpx_torch.infer import base, dual_averaging, hmc, mh
+from gpx_torch._device import generators, seeds
+from gpx_torch.infer import base, dual_averaging, gibbs, hmc, mh
+from gpx_torch.infer import ehmc as ehmc_mod
+from gpx_torch.infer import nuts as nuts_mod
 from gpx_torch.models import gp
 from gpx_torch.ops.distance import check_xy
 
@@ -98,20 +105,66 @@ def _disperse(generator, flat0, n_chains, jitter):
                                         dtype=flat0.dtype, device=flat0.device)
 
 
-def _seeds(key, n: int) -> list[int]:
-    """``n`` seeds drawn from ``key``: an int seed or a ``torch.Generator``
-    (which advances)."""
-    gen = key
-    if not isinstance(key, torch.Generator):
-        gen = torch.Generator().manual_seed(int(key))
-    return torch.randint(0, 2 ** 62, (n,), generator=gen,
-                         device=gen.device).tolist()
+def _run_chains(fn, args):
+    """``fn`` on each chain's entry of ``args`` (trees stacked along a
+    leading chains axis, or lists), back to back; the results stacked."""
+    n = len(args[0])
+    return base.stack([fn(*(base.index(a, c) for a in args))
+                       for c in range(n)])
 
 
-def _generators(seed: int, n: int, device) -> list[torch.Generator]:
-    """``n`` generators on ``device``, seeded from ``seed``."""
-    return [torch.Generator(device=device).manual_seed(s)
-            for s in _seeds(seed, n)]
+def _inits(key, flat0, n_chains, init_jitter):
+    """``(inits, run_seed)``: the dispersed starts and the seed of the
+    chains' generators, both drawn from ``key``."""
+    k_init, k_run = seeds(key, 2)
+    flat0 = flat0.detach()
+    gen = torch.Generator(device=flat0.device).manual_seed(k_init)
+    return _disperse(gen, flat0, n_chains, init_jitter), k_run
+
+
+def sample_mh(key, x, y, template, log_prior: Callable, n_samples: int, *,
+              proposal_scale: float = 0.15, n_chains: int = 4,
+              burn_in: int = 0, thin: int = 1,
+              nugget: float = gp.LOGML_NUGGET, init_jitter: float = 0.1,
+              safe: bool = False, mesh=None, mesh_axis: str = "data",
+              panel: int = 128) -> PosteriorSamples:
+    """Metropolis-Hastings over every hyperparameter (the reference's
+    ``KernelParameters.sample``, KernelParameters.scala:231-246): a
+    Gaussian random walk on the unconstrained parameters, the reference's
+    log-scale proposal with the Jacobian it omitted. Each proposal is one
+    value of :func:`gp.log_marginal_likelihood` (the Gram kernel on the
+    card, then the ``torch.linalg`` Cholesky; ``safe=True`` escalates the
+    nugget on a failed factor). ``x`` and ``y`` go to the card unless they
+    are tensors elsewhere."""
+    x, y = check_xy(x, y)
+    log_density = _gp_log_density(x, y, log_prior, nugget, safe=safe,
+                                  mesh=mesh)
+    return sample_mh_log_density(
+        key, template, log_density, n_samples,
+        proposal_scale=proposal_scale, n_chains=n_chains, burn_in=burn_in,
+        thin=thin, init_jitter=init_jitter)
+
+
+def sample_mh_log_density(key, template, log_density: Callable,
+                          n_samples: int, *, proposal_scale: float = 0.15,
+                          n_chains: int = 4, burn_in: int = 0, thin: int = 1,
+                          init_jitter: float = 0.1,
+                          sequential: bool = False) -> PosteriorSamples:
+    """Random-walk MH over any model: ``template`` is a parameter tree with
+    a ``bijectors()`` method and ``log_density`` maps the constrained tree
+    to a scalar (the reference's generic ``Mcmc`` machinery,
+    Mcmc.scala:13-33)."""
+    logpost, flat0, _ = mh.make_unconstrained_log_posterior(log_density,
+                                                            template)
+    inits, k_run = _inits(key, flat0, n_chains, init_jitter)
+    step = mh.kernel(logpost, mh.gaussian_random_walk(proposal_scale))
+    del sequential
+    init_states = _run_chains(lambda f: mh.init(f, logpost), (inits,))
+    result = base.sample_chains(step, init_states, k_run, n_samples,
+                                n_chains, burn_in=burn_in, thin=thin,
+                                collect=lambda s: s.position)
+    return _package(template, template.bijectors(), result.samples,
+                    result.accept_rate, {})
 
 
 def sample_hmc(key, x, y, template, log_prior: Callable, n_samples: int, *,
@@ -238,11 +291,11 @@ def sample_hmc_log_density(key, template, log_density: Callable,
 
     dev = flat0.device
     flat0 = flat0.detach()
-    k_init, k_wu, k_run = _seeds(key, 3)
+    k_init, k_wu, k_run = seeds(key, 3)
     inits = _disperse(torch.Generator(device=dev).manual_seed(k_init), flat0,
                       n_chains, init_jitter)
-    wu_gens = _generators(k_wu, n_chains, dev)
-    run_gens = _generators(k_run, n_chains, dev)
+    wu_gens = generators(k_wu, n_chains, dev)
+    run_gens = generators(k_run, n_chains, dev)
     eps_c, mass_c, draws, accept = [], [], [], []
     for c in range(n_chains):
         q0, mass = inits[c], None
@@ -274,3 +327,177 @@ def sample_hmc_log_density(key, template, log_density: Callable,
         extras["mass"] = torch.stack(mass_c)
     return _package(template, template.bijectors(), torch.stack(draws),
                     torch.stack(accept), extras)
+
+
+def sample_ehmc(key, x, y, template, log_prior: Callable, n_samples: int, *,
+                l0: int = 10, warmup_iters: int = 500, k: int = 2000,
+                l_max: int = 256, n_chains: int = 4, burn_in: int = 0,
+                thin: int = 1, nugget: float = gp.LOGML_NUGGET,
+                init_jitter: float = 0.1, analytic_gradients: bool = False,
+                mesh=None, mesh_axis: str = "data",
+                panel: int = 128) -> PosteriorSamples:
+    """Empirical HMC (the reference's ``KernelParameters.sampleEhmc``,
+    KernelParameters.scala:169-198). ``k``, the size of the empirical
+    U-turn-length distribution, defaults to the reference's 2000
+    (Ehmc.scala:95); each length measurement costs a full trajectory of
+    logML + gradient evaluations, so lower it for quick runs. Extras: the
+    step size and the lengths of each chain."""
+    x, y = check_xy(x, y)
+    log_density = _gp_log_density(x, y, log_prior, nugget,
+                                  analytic_gradients=analytic_gradients,
+                                  mesh=mesh)
+    return sample_ehmc_log_density(
+        key, template, log_density, n_samples, l0=l0,
+        warmup_iters=warmup_iters, k=k, l_max=l_max, n_chains=n_chains,
+        burn_in=burn_in, thin=thin, init_jitter=init_jitter)
+
+
+def sample_ehmc_log_density(key, template, log_density: Callable,
+                            n_samples: int, *, l0: int = 10,
+                            warmup_iters: int = 500, k: int = 2000,
+                            l_max: int = 256, n_chains: int = 4,
+                            burn_in: int = 0, thin: int = 1,
+                            init_jitter: float = 0.1,
+                            sequential: bool = False) -> PosteriorSamples:
+    """Empirical HMC over any model: the generic core of
+    :func:`sample_ehmc` (see :func:`sample_mh_log_density`)."""
+    logpost, flat0, _ = mh.make_unconstrained_log_posterior(log_density,
+                                                            template)
+    inits, k_run = _inits(key, flat0, n_chains, init_jitter)
+
+    def run_one(gen, q0):
+        return ehmc_mod.sample(logpost, q0, gen, n_samples, l0=l0,
+                               warmup_iters=warmup_iters, k=k, l_max=l_max,
+                               burn_in=burn_in, thin=thin)
+
+    del sequential
+    result, extras = _run_chains(
+        run_one, (generators(k_run, n_chains, inits.device), inits))
+    return _package(template, template.bijectors(), result.samples,
+                    result.accept_rate, extras)
+
+
+def sample_nuts(key, x, y, template, log_prior: Callable, n_samples: int, *,
+                max_depth: int = 8, eps: float | None = None,
+                warmup_iters: int = 500, n_chains: int = 4, burn_in: int = 0,
+                thin: int = 1, nugget: float = gp.LOGML_NUGGET,
+                init_jitter: float = 0.1, analytic_gradients: bool = False,
+                fast_warmup: bool = False, adapt_mass: bool = False,
+                mesh=None, mesh_axis: str = "data",
+                panel: int = 128) -> PosteriorSamples:
+    """No-U-Turn sampling over every hyperparameter. Per chain: a
+    dual-averaging warmup when ``eps`` is None (``adapt_mass=True``: the
+    windowed warmup with a diagonal mass), then iterative multinomial
+    NUTS (:mod:`gpx_torch.infer.nuts`) from over-dispersed starts.
+    ``analytic_gradients=True`` takes every leapfrog gradient through the
+    fused analytic route, ``fast_warmup`` (with it) runs the warmup on the
+    2-pass legs, under :func:`sample_hmc`'s rules. Extras: the step size
+    (and the mass) of each chain and the tree ``depth`` of every draw."""
+    x, y = check_xy(x, y)
+    log_density = _gp_log_density(x, y, log_prior, nugget,
+                                  analytic_gradients=analytic_gradients,
+                                  mesh=mesh)
+    warmup_log_density = _fast_warmup_density(
+        fast_warmup, analytic_gradients, mesh, x, y, log_prior, nugget,
+        eps=eps)
+    return sample_nuts_log_density(
+        key, template, log_density, n_samples, max_depth=max_depth, eps=eps,
+        warmup_iters=warmup_iters, adapt_mass=adapt_mass, n_chains=n_chains,
+        burn_in=burn_in, thin=thin, init_jitter=init_jitter,
+        warmup_log_density=warmup_log_density)
+
+
+def sample_nuts_log_density(key, template, log_density: Callable,
+                            n_samples: int, *, max_depth: int = 8,
+                            eps: float | None = None, warmup_iters: int = 500,
+                            adapt_mass: bool = False, n_chains: int = 4,
+                            burn_in: int = 0, thin: int = 1,
+                            init_jitter: float = 0.1, sequential: bool = False,
+                            warmup_log_density: Callable | None = None
+                            ) -> PosteriorSamples:
+    """NUTS over any model: the generic core of :func:`sample_nuts` (see
+    :func:`sample_mh_log_density`); ``warmup_log_density`` is a cheaper
+    surrogate for the warmup only (see :func:`sample_hmc_log_density`)."""
+    logpost, flat0, _ = mh.make_unconstrained_log_posterior(log_density,
+                                                            template)
+    logpost_wu = None if warmup_log_density is None else (
+        mh.make_unconstrained_log_posterior(warmup_log_density, template)[0])
+    inits, k_run = _inits(key, flat0, n_chains, init_jitter)
+
+    def run_one(gen, q0):
+        return nuts_mod.sample(
+            logpost, q0, gen, n_samples, max_depth=max_depth, eps=eps,
+            warmup_iters=warmup_iters, burn_in=burn_in, thin=thin,
+            adapt_mass=adapt_mass, collect=lambda s: (s.position, s.depth),
+            warmup_log_posterior=logpost_wu)
+
+    del sequential
+    result, extras = _run_chains(
+        run_one, (generators(k_run, n_chains, inits.device), inits))
+    positions, depths = result.samples
+    return _package(template, template.bijectors(), positions,
+                    result.accept_rate, dict(extras, depth=depths))
+
+
+class _GibbsState(NamedTuple):
+    params: Any
+    accepted: torch.Tensor
+
+
+def sample_mh_within_gibbs(key, x, y, template, log_prior_kernel: Callable,
+                           prior_mean, n_samples: int, *,
+                           proposal_scale: float = 0.15, n_chains: int = 4,
+                           burn_in: int = 0, thin: int = 1,
+                           nugget: float = gp.LOGML_NUGGET,
+                           mean_nugget: float = 1e-6) -> PosteriorSamples:
+    """Metropolis-within-Gibbs (the reference's ``Mcmc.sample``,
+    Mcmc.scala:63-76): each iteration a conjugate Gibbs draw of the plane
+    mean (:func:`gibbs.sample_mean`, prior ``prior_mean``) and one MH move
+    on the kernel's unconstrained hyperparameters (prior
+    ``log_prior_kernel`` of the kernel). Every chain starts at
+    ``template``."""
+    x, y = check_xy(x, y)
+    bij_k = template.kernel.bijectors()
+    _, unravel_k = gparams.unraveler(gparams.unconstrain(bij_k,
+                                                         template.kernel))
+
+    def step(gen, state: _GibbsState) -> _GibbsState:
+        params = gibbs.sample_mean(gen, prior_mean, x, y, state.params,
+                                   nugget=mean_nugget)
+
+        def logpost(uf):
+            kern = gparams.constrain(bij_k, unravel_k(uf))
+            p = gparams.Parameters(mean=params.mean, kernel=kern)
+            return (log_prior_kernel(kern)
+                    + gp.log_marginal_likelihood(p, x, y, nugget=nugget)
+                    + gparams.log_det_jacobian(bij_k, unravel_k(uf)))
+
+        with torch.no_grad():
+            u = gparams.to_array(gparams.unconstrain(bij_k, params.kernel))
+            prop = u + proposal_scale * torch.randn(
+                u.shape, generator=gen, dtype=u.dtype, device=u.device)
+            lp_cur = logpost(u)
+            lp_prop = logpost(prop)
+        lp_prop = torch.where(torch.isnan(lp_prop), float("-inf"), lp_prop)
+        uni = torch.rand((), generator=gen, dtype=u.dtype, device=u.device)
+        accept = torch.log(uni) < (lp_prop - lp_cur)
+        kern = gparams.constrain(bij_k, unravel_k(torch.where(accept, prop,
+                                                              u)))
+        return _GibbsState(gparams.Parameters(mean=params.mean, kernel=kern),
+                           state.accepted + accept.to(torch.int32))
+
+    dev = gparams.leaves(template)[0].device
+    init = _GibbsState(template, torch.zeros((), dtype=torch.int32,
+                                             device=dev))
+    result = base.sample_chains(step, init, key, n_samples, n_chains,
+                                burn_in=burn_in, thin=thin,
+                                collect=lambda s: s.params)
+    draws = gparams.leaves(result.samples)
+    c, s = draws[0].shape[:2]
+    return PosteriorSamples(
+        params=result.samples,
+        flat=torch.cat([t.reshape(c, s, -1) for t in draws], dim=-1),
+        names=gparams.names(template),
+        accept_rate=result.accept_rate,
+        extras={},
+    )

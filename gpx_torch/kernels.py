@@ -139,9 +139,10 @@ class SquaredExponential(Kernel):
 
 
 class Matern(Kernel):
-    """Matérn kernel for half-integer ``nu`` (1/2, 3/2, 5/2, ...) by its
-    closed form. General ``nu`` needs the Bessel ``K_nu``, which this port
-    does not have yet."""
+    """Matérn kernel: half-integer ``nu`` (1/2, 3/2, 5/2, ...) by its closed
+    form, any other ``nu > 0`` through the Bessel ``K_nu``
+    (:func:`gpx_torch.ops.besselk.kv`), which keeps that Matérn on the
+    plain torch route (``pallas_safe`` and ``cuda_supported`` False)."""
 
     _fields = ("sigma", "l")
 
@@ -160,13 +161,19 @@ class Matern(Kernel):
         return int(round(p)) if abs(p - round(p)) < 1e-12 else None
 
     def evaluate_r2(self, r2):
-        p = self._half_integer_p
-        if p is None:
-            raise NotImplementedError(
-                f"Matern with nu={self.nu}: only half-integer nu is ported"
-            )
         d = _safe_dist(r2)
         s = (math.sqrt(2.0 * self.nu) / self.l) * d
+        p = self._half_integer_p
+        if p is None:
+            from gpx_torch.ops.besselk import kv
+
+            # k -> sigma at s = 0: pin that point with the double-where
+            # trick so s^nu K_nu(s) puts a NaN in neither value nor gradient
+            zero = r2 <= 0.0
+            s_safe = torch.where(zero, torch.ones_like(s), s)
+            const = 2.0 ** (1.0 - self.nu) / math.gamma(self.nu)
+            val = const * s_safe ** self.nu * kv(self.nu, s_safe)
+            return self.sigma * torch.where(zero, torch.ones_like(val), val)
         scale = math.factorial(p) / math.factorial(2 * p)
         poly = 0.0
         for i in range(p + 1):

@@ -44,6 +44,13 @@ class Plane(MeanFunction):
         return Plane(beta=bij.identity)
 
 
+def design_matrix(x):
+    """Prepend a column of ones (MeanParameters.makeDesignMatrix,
+    MeanParameters.scala:58-66): ``(N, D)`` -> ``(N, D + 1)``."""
+    ones = torch.ones((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
+    return torch.cat([ones, x], dim=-1)
+
+
 def plane(beta, *, device=None, dtype=None) -> Plane:
     return Plane(beta=as_tensor(beta, device=device, dtype=dtype))
 

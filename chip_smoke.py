@@ -94,7 +94,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    value route: the Gram kernel, no gradient kernel; recovery, accept
    rates) and ``sample_mh_within_gibbs`` (a known plane added to y,
    recovered), and one NUTS chain at N = 16,384; each part's seconds;
-7. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+7. the sparse and multi-output models (``phase_models``), each at full
+   width in float32 against the same port code in float64 on the card, with
+   the float32 plain route (no CUDA kernel) as a witness where float32 is
+   the limit (an output that the witness misses by more than WITNESS_CAP
+   is printed as not held), each kernel held directly against float64 at
+   the path's own shapes (Kuu, Kuf, the ICM's and the grid axes' Grams,
+   ``gram_matvec`` at T R = 136 columns, ``cross_matvec`` at the fit's
+   shape), and the launches of the Gram kernel, ``gram_matvec`` and
+   ``cross_matvec`` per step or evaluation: (a) SGPR on
+   benchmarks/svgp_scale.py's data (N = 262,144, M = 1024), the bound and
+   its gradient with their peak memory, and fit; (b) ``svgp.train`` there
+   (500 steps, batch 2048): ms per step, points/s, the ELBO, the trained
+   noise, one minibatch gradient against float64, held-out RMSE and NLPD
+   beside an exact ``gp.fit`` from a subsample; (c) ``svgp_mo.train``
+   (T = 4, Q = 2, M = 512, 200 steps, 10% masked) and its fit; (d) the
+   ICM of benchmarks/multioutput_scale.py at N = 4096, T = 4, kron and
+   dense, timed there, their gradients held on the same data with a B of
+   distinct eigenvalues; an LMC and a mask, fit; (e) the matrix-free ICM
+   at N = 16,384, T = 8 (ms/eval, CG iterations), held against the same
+   estimator in float64 on the same probes with a B of distinct
+   eigenvalues, at N = 4096 against the dense float64 logML, and
+   ``fit_iterative``;
+   (f) benchmarks/grid_scale.py's 4096 x 64 lattice, the logML and its
+   gradient, and fit;
+8. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
     python3 chip_smoke.py --no-iterative
 
@@ -130,6 +154,10 @@ the bench case's real blocks, and the exact and hybrid ms/eval, in one
 
 runs phase 1 and phases 5 and 6 only, with no ``kernels`` or ``ok``
 line.
+
+    python3 chip_smoke.py --models-only
+
+runs phase 1 and phase 7 only, with no ``kernels`` or ``ok`` line.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -753,22 +781,26 @@ def _families(gt, dtype=None):
     }
 
 
-def _hold_gram(torch, gt, label, kern, x, nugget=1e-3) -> float:
+def _hold_gram(torch, gt, label, kern, x, nugget=1e-3, x2=None) -> float:
     """The Gram kernel against its plain version in float64 on the same f32
-    x, within FAMILY_ULPS of each entry's scale; returns the largest
-    absolute error."""
+    x (and x2 for a cross Gram), within FAMILY_ULPS of each entry's scale;
+    returns the largest absolute error."""
     from gpx_torch.ops import cuda_gram
     from gpx_torch.ops.distance import sq_distances
     from gpx_torch.ops.terms import term_dr2
 
-    got = cuda_gram.gram_cuda(kern, x, nugget=nugget)
+    got = cuda_gram.gram_cuda(kern, x, x2, nugget=nugget)
     k64, x64 = _f64_kernel(gt, kern), x.double()
-    want = cuda_gram.gram_reference(k64, x64, None, nugget)
-    r2 = sq_distances(x64)
+    x2_64 = None if x2 is None else x2.double()
+    want = cuda_gram.gram_reference(k64, x64, x2_64, nugget)
+    r2 = sq_distances(x64, x2_64)
     # the smallest normal f32 as a floor: f32 entries below it underflow
     scale = (want.abs() + 2.0 * r2 * term_dr2(k64, r2, absolute=True)
              + 2.0 ** -126)
-    return _hold_ulps(torch, f"gram {label} n={x.shape[0]} d={x.shape[1]}", got,
+    del r2
+    shape = (f"n={x.shape[0]}" if x2 is None
+             else f"{x.shape[0]} x {x2.shape[0]}")
+    return _hold_ulps(torch, f"gram {label} {shape} d={x.shape[1]}", got,
                       want, scale, FAMILY_ULPS)
 
 
@@ -2003,6 +2035,56 @@ def _matvec_bound_fp32(n1, n2, r, name="se+white"):
                     nbytes=4.0 * (n1 + 2 * r * n2))
 
 
+def _hold_gram_matvec(torch, label, kern, k64, x, v, nug, rows=None) -> float:
+    """gram_matvec's kernel on the centred x (as the wrapper hands it)
+    against float64 and against its plain TF32 version, within 4 f32 ulps
+    of each output's sum of |terms|; with ``rows``, the first rows only
+    (the cross form plus the nugget). A repeated call gives the same bits.
+    Returns the largest absolute error."""
+    from gpx_torch.ops import cuda_matvec as cm
+
+    xc = x - x.mean(dim=0, keepdim=True)
+    got = cm.gram_matvec_cuda(kern, xc, v, nugget=nug)
+    check(torch.equal(got, cm.gram_matvec_cuda(kern, xc, v, nugget=nug)),
+          f"{label}: a repeated call differs")
+    x64, v64 = xc.double(), v.double()
+    if rows is None:
+        want = cm._gram_matvec_torch(k64, x64, v64, nug)
+        scale = cm._gram_matvec_torch(k64, x64, v64.abs(), nug)
+    else:  # the first rows: the cross form plus the nugget
+        want = cm._cross_matvec_torch(k64, x64[:rows], x64, v64) + nug * v64[:rows]
+        scale = (cm._cross_matvec_torch(k64, x64[:rows], x64, v64.abs())
+                 + nug * v64[:rows].abs())
+        got = got[:rows]
+    err = _hold_ulps(torch, label, got, want, scale, 4.0)
+    del want
+    wit = cm._gram_matvec_tf32x3_torch(kern, xc, v, nug, rows=rows)
+    _hold_ulps(torch, f"{label} against the plain TF32 version", got,
+               wit.double(), scale, 4.0)
+    return err
+
+
+def _hold_cross_matvec(torch, label, kern, k64, x1, x2, v) -> float:
+    """cross_matvec's kernel on the sets centred at x2's mean (as the
+    wrapper hands them), held as :func:`_hold_gram_matvec` holds
+    gram_matvec."""
+    from gpx_torch.ops import cuda_matvec as cm
+
+    c = x2.mean(dim=0, keepdim=True)
+    x1c, x2c = x1 - c, x2 - c
+    got = cm.cross_matvec_cuda(kern, x1c, x2c, v)
+    check(torch.equal(got, cm.cross_matvec_cuda(kern, x1c, x2c, v)),
+          f"{label}: a repeated call differs")
+    want = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(), v.double())
+    scale = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(),
+                                   v.double().abs())
+    err = _hold_ulps(torch, label, got, want, scale, 4.0)
+    wit = cm._cross_matvec_tf32x3_torch(kern, x1c, x2c, v)
+    _hold_ulps(torch, f"{label} against the plain TF32 version", got,
+               wit.double(), scale, 4.0)
+    return err
+
+
 def _matvec_checks(torch, gt, records):
     """Both kernels against their plain versions at the path's shapes
     (R = 1, 8, 9 and fit_iterative's 256), the ragged, D = 12 and D = 20
@@ -2029,40 +2111,12 @@ def _matvec_checks(torch, gt, records):
     errs = {"gram_matvec": 0.0, "cross_matvec": 0.0}
 
     def gram_case(label, x, v, rows=None, kern=kern, k64=k64):
-        xc = x - x.mean(dim=0, keepdim=True)
-        got = cm.gram_matvec_cuda(kern, xc, v, nugget=nug)
-        check(torch.equal(got, cm.gram_matvec_cuda(kern, xc, v, nugget=nug)),
-              f"{label}: a repeated call differs")
-        x64, v64 = xc.double(), v.double()
-        if rows is None:
-            want = cm._gram_matvec_torch(k64, x64, v64, nug)
-            scale = cm._gram_matvec_torch(k64, x64, v64.abs(), nug)
-        else:  # the first rows: the cross form plus the nugget
-            want = cm._cross_matvec_torch(k64, x64[:rows], x64, v64) + nug * v64[:rows]
-            scale = (cm._cross_matvec_torch(k64, x64[:rows], x64, v64.abs())
-                     + nug * v64[:rows].abs())
-            got = got[:rows]
-        errs["gram_matvec"] = max(errs["gram_matvec"],
-                                  _hold_ulps(torch, label, got, want, scale, 4.0))
-        del want
-        wit = cm._gram_matvec_tf32x3_torch(kern, xc, v, nug, rows=rows)
-        _hold_ulps(torch, f"{label} against the plain TF32 version", got,
-                   wit.double(), scale, 4.0)
+        errs["gram_matvec"] = max(errs["gram_matvec"], _hold_gram_matvec(
+            torch, label, kern, k64, x, v, nug, rows))
 
     def cross_case(label, x1, x2, v, kern=kern, k64=k64):
-        c = x2.mean(dim=0, keepdim=True)
-        x1c, x2c = x1 - c, x2 - c
-        got = cm.cross_matvec_cuda(kern, x1c, x2c, v)
-        check(torch.equal(got, cm.cross_matvec_cuda(kern, x1c, x2c, v)),
-              f"{label}: a repeated call differs")
-        want = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(), v.double())
-        scale = cm._cross_matvec_torch(k64, x1c.double(), x2c.double(),
-                                       v.double().abs())
-        errs["cross_matvec"] = max(errs["cross_matvec"],
-                                   _hold_ulps(torch, label, got, want, scale, 4.0))
-        wit = cm._cross_matvec_tf32x3_torch(kern, x1c, x2c, v)
-        _hold_ulps(torch, f"{label} against the plain TF32 version", got,
-                   wit.double(), scale, 4.0)
+        errs["cross_matvec"] = max(errs["cross_matvec"], _hold_cross_matvec(
+            torch, label, kern, k64, x1, x2, v))
 
     x = torch.as_tensor(_iter_case(N_IT)[0], device="cuda")
     for r in (1, 8, 9, 256):
@@ -3851,6 +3905,737 @@ def phase_workflows(torch, gt, sampler_case, sampler_out):
     return out
 
 
+# -- phase 7: the sparse and multi-output models ----------------------------
+
+N_SVGP, M_SVGP = 262144, 1024     # benchmarks/svgp_scale.py
+SVGP_STEPS, SVGP_BATCH = 500, 2048
+M_MO, MO_STEPS, T_MO = 512, 200, 4
+N_ICM, T_ICM = 4096, 4            # benchmarks/multioutput_scale.py defaults
+N_MF, T_MF = 16384, 8             # its matrix-free case
+MF = dict(n_probes=16, lanczos_iters=32, cg_tol=1e-5, precond_rank=64)
+GRID = (4096, 64)                 # benchmarks/grid_scale.py
+# test points: SGPR's fit, SVGP's held-out set and the exact fit's
+# subsample, the multi-output SVGP's fit, the ICM's, iterative and grid fits
+S_SGPR, S_HELD, S_MO, S_ICM = 16384, 16384, 4096, 1024
+# limits before the witness: the exact path's float32 envelope (value 1e-4
+# relative; a gradient 1e-2 of its norm) and fit's records (MEAN_LIMIT,
+# VAR_LIMIT of scale)
+VALUE_REL, GRAD_REL = 1e-4, 1e-2
+# the largest miss of the float32 plain route (or of the path's own float64
+# algorithm) that may widen a limit; an output past it is not held
+WITNESS_CAP = 0.1
+NOT_HELD: list = []               # the outputs _hold_model did not hold
+DEV = "cuda"                      # phase 7's device (a CPU rehearsal sets "cpu")
+
+
+class _PlainRoutes:
+    """Inside: the Gram and the matvec take their plain torch routes on
+    the card, for the float32 witness of a model (the same float32
+    algorithm, no CUDA kernel)."""
+
+    def __enter__(self):
+        from gpx_torch.ops import gram, matvec
+
+        self._saved = gram.uses_cuda_kernel, matvec._uses_cuda_kernel
+        gram.uses_cuda_kernel = matvec._uses_cuda_kernel = (
+            lambda *a, **k: False)
+
+    def __exit__(self, *exc):
+        from gpx_torch.ops import gram, matvec
+
+        gram.uses_cuda_kernel, matvec._uses_cuda_kernel = self._saved
+
+
+class _F32Jitter:
+    """Inside: the sparse models regularize Kuu with the float32 jitter
+    (JITTER_F32) in float64 too, so that a float64 run computes the same
+    function as the float32 one (its own jitter, 1e-6, is another)."""
+
+    def __enter__(self):
+        from gpx_torch.models import sparse, svgp, svgp_mo
+
+        self._mods = (sparse, svgp, svgp_mo)
+        self._saved = [m._jitter for m in self._mods]
+        for m in self._mods:
+            m._jitter = lambda dtype: sparse.JITTER_F32
+
+    def __exit__(self, *exc):
+        for m, f in zip(self._mods, self._saved):
+            m._jitter = f
+
+
+def _same_nonfinite(a, b):
+    """Whether ``a`` and ``b`` are non-finite at the same entries."""
+    return bool(((~a.isfinite()) == (~b.isfinite())).all())
+
+
+def _to64(gt, tree):
+    return gt.params.unflatten(tree, [t.double() for t in gt.params.leaves(tree)])
+
+
+def _rel(got, want) -> float:
+    """Normwise relative error of a tensor against float64."""
+    g, w = got.double(), want.double().to(got.device)
+    return float((g - w).norm() / max(float(w.norm()), 1e-300))
+
+
+def _hold_model(label, names, got, want, witness, base, own64=None):
+    """Each output of a float32 model on the kernel route against the same
+    port code in float64 on the same inputs, normwise relative: within
+    ``base`` (VALUE_REL for a value, GRAD_REL for a gradient, the fit
+    records for a posterior), or, where the float32 plain route (the
+    witness: the same algorithm in float32 without the kernels) misses it
+    too, within twice the witness's error. ``own64``: where ``want`` is
+    another algorithm's float64 result (the dense logML for the kron one),
+    the path's own float64 outputs, whose miss is the algorithm's and
+    counts as a witness too. A witness that misses by more than
+    WITNESS_CAP of the output's norm leaves the output not held: float32
+    rounding decides it, and a limit scaled to it could not fail (the
+    kernels on that path are held directly, _hold_gram and the matvec
+    holds). Returns the largest error of the outputs held; the outputs not
+    held are listed in NOT_HELD."""
+    worst = 0.0
+    own64 = [None] * len(names) if own64 is None else own64
+    for nm, g, w, f, b, o in zip(names, got, want, witness, base, own64):
+        e, ew = _rel(g, w), _rel(f, w)
+        eo = 0.0 if o is None else _rel(o, w)
+        limit = max(b, 2.0 * ew, 2.0 * eo)
+        own = "" if o is None else f", its own float64 {eo:.3e}"
+        if not bool(g.isfinite().all()):
+            # a float32 fault of the algorithm, not of a kernel, where the
+            # plain route gives non-finite values at the same entries
+            same = _same_nonfinite(g, f)
+            bad = int((~g.isfinite()).sum())
+            print(f"{label} {nm}: NOT FINITE in float32 ({bad} of "
+                  f"{g.numel()} entries), as on the float32 plain route: "
+                  f"{same}; float64 finite, norm {float(w.double().norm()):.4e}"
+                  + ("" if o is None else f", its own float64 off by {eo:.3e}")
+                  + " (a fault of the float32 algorithm: ROADMAP section 3)",
+                  flush=True)
+            check(same, f"{label} {nm}: not finite where the float32 plain "
+                  f"route is")
+            check(bool(w.isfinite().all()), f"{label} {nm}: float64 not finite")
+            NOT_HELD.append(f"{label} {nm} (not finite)")
+            continue
+        if max(ew, eo) > WITNESS_CAP:
+            print(f"{label} {nm}: not held (float32 algorithm): err {e:.3e} "
+                  f"of float64's norm {float(w.double().norm()):.4e}; the "
+                  f"float32 plain route misses it by {ew:.3e}{own}, above "
+                  f"{WITNESS_CAP:g}", flush=True)
+            NOT_HELD.append(f"{label} {nm}")
+            continue
+        print(f"{label} {nm}: err {e:.3e} of float64's norm "
+              f"{float(w.double().norm()):.4e} (limit {limit:.3e}; base {b:g}, "
+              f"float32 plain route {ew:.3e}{own})", flush=True)
+        check(e <= limit, f"{label} {nm}: outside its limit")
+        worst = max(worst, e)
+    return worst
+
+
+def _value_and_grads(torch, gt, fn, tree, *extra):
+    """``[value, d/dleaf for every leaf of tree, d/d each of extra]`` of
+    ``fn(tree, *extra)``, detached."""
+    ls = [t.detach().requires_grad_() for t in gt.params.leaves(tree)]
+    ex = [t.detach().requires_grad_() for t in extra]
+    with torch.enable_grad():
+        v = fn(gt.params.unflatten(tree, ls), *ex)
+        gs = torch.autograd.grad(v, ls + ex)
+    return [v.detach()] + [g.detach() for g in gs]
+
+
+def _three(torch, gt, fn, tree, *inputs):
+    """``(float32 on the kernel route, float64, float32 witness)`` of
+    ``fn(tree, *inputs)``; float64 with the float32 Kuu jitter."""
+    f32 = fn(tree, *inputs)
+    with _F32Jitter():
+        f64 = fn(_to64(gt, tree), *(t.double() for t in inputs))
+    with _PlainRoutes():
+        wit = fn(tree, *inputs)
+    return f32, f64, wit
+
+
+def _svgp_data(torch, n):
+    """benchmarks/svgp_scale.py's data: x sorted U(-10, 10) at numpy seed 0,
+    y = 3 sin(0.7 x) + 0.5 eps, float32 on the card."""
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(-10.0, 10.0, size=n)).astype(np.float32)
+    y = (3.0 * np.sin(0.7 * x) + 0.5 * rng.normal(size=n)).astype(np.float32)
+    return (torch.as_tensor(x, device=DEV)[:, None],
+            torch.as_tensor(y, device=DEV))
+
+
+def _per(launches, n):
+    return {k: v / n for k, v in launches.items() if v}
+
+
+def _sgpr_case(torch, gt, x, y):
+    """(a) SGPR at N = 262,144, M = 1024 quantile landmarks: the bound and
+    its gradient in the kernel's leaves and z, and fit to 16,384 grid
+    points, each against float64 (same code) with the float32 plain route
+    as witness; peak memory of the bound with its gradient."""
+    from gpx_torch.models import sparse
+
+    z = x[:: N_SVGP // M_SVGP][:M_SVGP]
+    p = gt.Parameters(mean=gt.zero(), kernel=gt.se(2.0, 2.0, device=DEV))
+
+    def bound(params, z_, x_, y_):
+        return _value_and_grads(
+            torch, gt, lambda q, zz: sparse.elbo(q, zz, x_, y_, noise=0.25),
+            params, z_)
+
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, wall, launches = _counted(torch, lambda: bound(p, z, x, y))
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    ms = 1e3 * min(_counted(torch, lambda: bound(p, z, x, y))[1]
+                   for _ in range(3))
+    with _F32Jitter():
+        want = bound(_to64(gt, p), z.double(), x.double(), y.double())
+    with _PlainRoutes():
+        wit = bound(p, z, x, y)
+    print(f"(a) SGPR elbo + grad N={N_SVGP} M={M_SVGP}: {ms:.2f} ms (best of "
+          f"3 after one); launches {json.dumps(launches)}; value "
+          f"{float(got[0]):.8e} (float64 {float(want[0]):.8e}); peak memory "
+          f"{peak:.2f} GiB above the data (Kuf alone 1.00 GiB in float32)",
+          flush=True)
+    check(launches["gram"] >= 2, "(a) SGPR: the Gram kernel was not launched "
+          "for Kuu and Kuf")
+    gerr = max(_hold_gram(torch, gt, "(a) SGPR Kuu", p.kernel, z,
+                          nugget=sparse.JITTER_F32),
+               _hold_gram(torch, gt, "(a) SGPR Kuf", p.kernel, z, nugget=0.0,
+                          x2=x))
+    torch.cuda.empty_cache()
+    err = _hold_model("(a) SGPR", ["value", "dh", "dsigma", "dz"], got, want,
+                      wit, [VALUE_REL] + [GRAD_REL] * 3)
+    xs = torch.linspace(-10.0, 10.0, S_SGPR, device=DEV)[:, None]
+
+    def fit(params, z_, x_, y_, xs_):
+        s = sparse.fit(params, z_, x_, y_, xs_, noise=0.25)
+        return [s.mean, s.variance]
+
+    (f32, f64, fw), wall_f, fl = _counted(
+        torch, lambda: _three(torch, gt, fit, p, z, x, y, xs))
+    t_fit = _counted(torch, lambda: fit(p, z, x, y, xs))[1]
+    _hold_model("(a) SGPR fit", ["mean", "variance"], f32, f64, fw,
+                [MEAN_LIMIT, VAR_LIMIT])
+    print(f"(a) SGPR fit -> {S_SGPR} points: {1e3 * t_fit:.2f} ms", flush=True)
+    return {"elbo_grad_ms": ms, "fit_ms": 1e3 * t_fit, "peak_gib": peak,
+            "launches": launches, "err": err, "gram_err": gerr}
+
+
+def _svgp_case(torch, gt, x, y):
+    """(b) svgp.train at N = 262,144 (M = 1024, batch 2048, 500 steps, lr
+    1e-2, noise trained): ms per step, points/s, the ELBO trace, the
+    trained noise; one elbo_minibatch and its gradient at a fixed batch
+    against float64; held-out RMSE and NLPD beside an exact gp.fit."""
+    from gpx_torch.models import gp, svgp
+
+    z = x[:: N_SVGP // M_SVGP][:M_SVGP]
+    p = gt.Parameters(mean=gt.zero(), kernel=gt.se(2.0, 2.0, device=DEV))
+
+    def train(steps):
+        return svgp.train(0, p, z, x, y, noise=0.25, batch_size=SVGP_BATCH,
+                          steps=steps, learning_rate=1e-2, train_noise=True)
+
+    train(2)  # the first torch.optim step of a process imports torch._dynamo
+    (pt, zt, st, nt, trace), wall, launches = _counted(
+        torch, lambda: train(SVGP_STEPS))
+    tr = trace.cpu().numpy()
+    ms = 1e3 * wall / SVGP_STEPS
+    print(f"(b) SVGP train: {ms:.2f} ms per step, "
+          f"{SVGP_STEPS * SVGP_BATCH / wall:.4e} points/s; ELBO first "
+          f"{tr[0]:.6e} last {tr[-1]:.6e} (mean of the last 10 "
+          f"{tr[-10:].mean():.6e}); trained noise {float(nt):.5f} (truth "
+          f"0.25), h {float(pt.kernel.h):.4f}, sigma {float(pt.kernel.sigma):.4f};"
+          f" launches per step {json.dumps(_per(launches, SVGP_STEPS))}",
+          flush=True)
+    check(bool(np.isfinite(tr).all()), "(b) SVGP: ELBO trace not finite")
+    check(tr[-10:].mean() > tr[:10].mean(), "(b) SVGP: ELBO did not improve")
+    check(launches["gram"] >= 2 * SVGP_STEPS, "(b) SVGP: the Gram kernel was "
+          "not launched for Kuu and Kuf at every step")
+    idx = torch.as_tensor(np.random.default_rng(1).choice(
+        N_SVGP, SVGP_BATCH, replace=False), device=DEV)
+
+    def mb(params, z_, mu, c_raw, s2, x_, y_):
+        return _value_and_grads(torch, gt, lambda q, zz, m_, c_, n_: (
+            svgp.elbo_minibatch(q, zz, svgp.SVGPState(m_, c_), x_, y_,
+                                n_total=N_SVGP, noise=n_)),
+            params, z_, mu, c_raw, s2)
+
+    got, want, wit = _three(torch, gt, mb, pt, zt, st.mu, st.c_raw, nt,
+                            x[idx], y[idx])
+    err = _hold_model("(b) SVGP elbo_minibatch", [
+        "value", "dh", "dsigma", "dz", "dmu", "dc_raw", "dnoise"], got, want,
+        wit, [VALUE_REL] + [GRAD_REL] * 6)
+    step_ms = 1e3 * min(_counted(torch, lambda: mb(
+        pt, zt, st.mu, st.c_raw, nt, x[idx], y[idx]))[1] for _ in range(3))
+
+    # held-out quality: S_HELD new points of the same law (numpy seed 1)
+    rng = np.random.default_rng(1)
+    xh = np.sort(rng.uniform(-10.0, 10.0, S_HELD)).astype(np.float32)
+    yh = torch.as_tensor((3.0 * np.sin(0.7 * xh) + 0.5 * rng.normal(
+        size=S_HELD)).astype(np.float32), device=DEV)
+    xh = torch.as_tensor(xh, device=DEV)[:, None]
+    s = svgp.fit(pt, zt, st, xh, noise=nt)
+    sub = torch.as_tensor(np.sort(rng.choice(N_SVGP, S_HELD, replace=False)),
+                          device=DEV)
+    ex = gp.fit(gt.Parameters(mean=gt.zero(), kernel=pt.kernel), x[sub],
+                y[sub], xh, nugget=float(nt))
+    quality = {}
+    for name, mean, var in (("svgp", s.mean, s.variance),
+                            ("exact_subsample", ex.mean, ex.variance + nt)):
+        r = (yh - mean).double()
+        quality[name] = {
+            "rmse": float(r.pow(2).mean().sqrt()),
+            "nlpd": float((0.5 * torch.log(2 * math.pi * var.double())
+                           + r.pow(2) / (2 * var.double())).mean())}
+    floor = 0.5 * math.log(2 * math.pi * 0.25) + 0.5
+    print(f"(b) held-out ({S_HELD} points): {json.dumps(quality)} (noise sd "
+          f"0.5: RMSE floor 0.5, NLPD floor {floor:.4f})", flush=True)
+    for q in quality.values():
+        check(all(math.isfinite(v) for v in q.values()),
+              "(b) held-out quality not finite")
+    return {"ms_per_step": ms, "points_per_s": SVGP_STEPS * SVGP_BATCH / wall,
+            "elbo_first": float(tr[0]), "elbo_last": float(tr[-1]),
+            "noise": float(nt), "minibatch_grad_ms": step_ms, "err": err,
+            "quality": quality,
+            "launches_per_step": _per(launches, SVGP_STEPS)}
+
+
+def _mo_svgp_case(torch, gt, x):
+    """(c) svgp_mo.train on the same x: T = 4 outputs y_t = 3 sin(0.7 x +
+    phi_t) + 0.5 eps, Q = 2 latents (SE(2, 2), Matern(1, 3/2, 2)), M = 512,
+    batch 2048, 200 steps, 10% of the entries masked; fit to 4,096 points
+    against float64."""
+    from gpx_torch.models import sparse, svgp_mo
+
+    rng = np.random.default_rng(2)
+    phase = rng.uniform(0.0, 2.0, T_MO)
+    xn = x[:, 0].cpu().numpy().astype(np.float64)
+    Y = torch.as_tensor((3.0 * np.sin(0.7 * xn[:, None] + phase[None, :])
+                         + 0.5 * rng.normal(size=(N_SVGP, T_MO))
+                         ).astype(np.float32), device=DEV)
+    mask = rng.uniform(size=(N_SVGP, T_MO)) >= 0.1
+    z = x[:: N_SVGP // M_MO][:M_MO]
+    p = svgp_mo.mo_svgp([gt.se(2.0, 2.0, device=DEV),
+                         gt.matern(1.0, 1.5, 2.0, device=DEV)], T_MO)
+
+    def train(steps):
+        return svgp_mo.train(0, p, z, x, Y, noise=0.25, batch_size=SVGP_BATCH,
+                             steps=steps, learning_rate=1e-2,
+                             train_noise=True, mask=mask)
+
+    train(2)
+    (pt, zt, st, nt, trace), wall, launches = _counted(
+        torch, lambda: train(MO_STEPS))
+    tr = trace.cpu().numpy()
+    ms = 1e3 * wall / MO_STEPS
+    print(f"(c) multi-output SVGP train: {ms:.2f} ms per step; ELBO first "
+          f"{tr[0]:.6e} last {tr[-1]:.6e}; noise {nt.cpu().numpy().round(4)}; "
+          f"launches per step {json.dumps(_per(launches, MO_STEPS))}",
+          flush=True)
+    check(bool(np.isfinite(tr).all()), "(c) MO-SVGP: ELBO trace not finite")
+    check(tr[-10:].mean() > tr[:10].mean(), "(c) MO-SVGP: ELBO did not improve")
+    check(launches["gram"] >= 4 * MO_STEPS, "(c) MO-SVGP: the Gram kernel was "
+          "not launched for every latent's Kuu and Kuf at every step")
+    gerr = 0.0
+    for q, kern in enumerate(pt.kernels):
+        gerr = max(gerr, _hold_gram(torch, gt, f"(c) MO-SVGP latent {q} Kuu",
+                                    kern, zt, nugget=sparse.JITTER_F32),
+                   _hold_gram(torch, gt, f"(c) MO-SVGP latent {q} Kuf", kern,
+                              zt, nugget=0.0, x2=x))
+        torch.cuda.empty_cache()
+    xs = torch.linspace(-10.0, 10.0, S_MO, device=DEV)[:, None]
+
+    def fit(params, z_, mu, c_raw, xs_):
+        s = svgp_mo.fit(params, z_, svgp_mo.MoSVGPState(mu, c_raw), xs_)
+        return [s.mean, s.variance]
+
+    f32, f64, fw = _three(torch, gt, fit, pt, zt, st.mu, st.c_raw, xs)
+    err = _hold_model("(c) MO-SVGP fit", ["mean", "variance"], f32, f64, fw,
+                      [MEAN_LIMIT, VAR_LIMIT])
+    return {"ms_per_step": ms, "elbo_first": float(tr[0]),
+            "elbo_last": float(tr[-1]), "err": err, "gram_err": gerr,
+            "launches_per_step": _per(launches, MO_STEPS)}
+
+
+def _icm_problem(torch, gt, n, t, seed=42, distinct=False):
+    """benchmarks/multioutput_scale.py's problem: x sorted U(-10, 10), W ~
+    0.6 N(0, 1) (T, 2), kappa 0.3, noise 0.5, SE(2, 2), Y_t = 3 sin(0.7 x +
+    phi_t) + 0.5 eps, float32 on the card. Its rank-2 W repeats B's
+    eigenvalue 0.3 T - 2 times, where eigh's VJP is not defined and the
+    basis that rotates the Kronecker preconditioner's probes is not unique.
+    ``distinct``: the same data and kernel under a full-rank W (T, T) ~ 0.6
+    N(0, 1) (numpy seed ``seed + 1``) and kappa spread over [0.2, 0.5], so
+    that B's eigenvalues are distinct, for the gradients' holds."""
+    from gpx_torch.models import multioutput as mo
+
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-10.0, 10.0, n))[:, None]
+    w = rng.normal(size=(t, 2)) * 0.6
+    phase = rng.uniform(0.0, 2.0, t)
+    y = 3.0 * np.sin(0.7 * x + phase[None, :]) + 0.5 * rng.normal(size=(n, t))
+    kappa = np.full(t, 0.3)
+    if distinct:
+        w = np.random.default_rng(seed + 1).normal(size=(t, t)) * 0.6
+        kappa = np.linspace(0.2, 0.5, t)
+    p = mo.IcmParams(kernel=gt.se(2.0, 2.0, device=DEV),
+                     w=torch.as_tensor(w, dtype=torch.float32, device=DEV),
+                     kappa=torch.as_tensor(kappa, dtype=torch.float32,
+                                           device=DEV),
+                     noise=torch.tensor(0.5, device=DEV))
+    if distinct:
+        lam = torch.linalg.eigvalsh(mo.coregion_matrix(p).double())
+        gap = float((lam[1:] - lam[:-1]).min() / lam[-1])
+        print(f"ICM T={t} with distinct B: eigenvalues "
+              f"{[round(float(v), 4) for v in lam]}, smallest gap {gap:.3e} "
+              f"of the largest", flush=True)
+        check(gap > 1e-3, "the distinct-B instance has close eigenvalues")
+    return (p, torch.as_tensor(x, dtype=torch.float32, device=DEV),
+            torch.as_tensor(y, dtype=torch.float32, device=DEV))
+
+
+def _icm_case(torch, gt):
+    """(d) ICM at N = 4096, T = 4: the kron and dense logML and their
+    gradients timed on the bench problem, its values against the dense
+    float64 logML; the gradients held on the instance with distinct B
+    eigenvalues (every leaf; the kron float64 gradient against the dense
+    one); the base Gram against float64; an LMC (Q = 2) and a masked case
+    on the dense path, fit to 1,024 points."""
+    from gpx_torch.models import multioutput as mo
+
+    p, x, Y = _icm_problem(torch, gt, N_ICM, T_ICM)
+    pd, _, _ = _icm_problem(torch, gt, N_ICM, T_ICM, distinct=True)
+    out = {"gram_err": _hold_gram(torch, gt, "(d) ICM Kxx", p.kernel, x,
+                                  nugget=0.0)}
+    names = ["value", "dh", "dsigma", "dw", "dkappa", "dnoise"]
+
+    def lml(q, x_, Y_, method):
+        return _value_and_grads(torch, gt, lambda r: mo.log_marginal_likelihood(
+            r, x_, Y_, method=method), q)
+
+    # the oracle: the dense logML and its gradient in float64
+    p64, pd64, x64, Y64 = _to64(gt, p), _to64(gt, pd), x.double(), Y.double()
+    ref, refd = lml(p64, x64, Y64, "dense"), lml(pd64, x64, Y64, "dense")
+    for method in ("kron", "dense"):
+        f32, wall, launches = _counted(torch, lambda: lml(p, x, Y, method))
+        ms = 1e3 * min(_counted(torch, lambda: lml(p, x, Y, method))[1]
+                       for _ in range(2))
+        own = lml(p64, x64, Y64, method)
+        with _PlainRoutes():
+            wit = lml(p, x, Y, method)
+        print(f"(d) ICM {method} N={N_ICM} T={T_ICM}: value {float(f32[0]):.8e} "
+              f"(float64 {float(own[0]):.8e}); {ms:.2f} ms per value + "
+              f"gradient; launches per eval {json.dumps(_per(launches, 1))}",
+              flush=True)
+        check(launches["gram"] >= 1, f"(d) ICM {method}: the Gram kernel was "
+              f"not launched")
+        kron = method == "kron"
+        err = _hold_model(f"(d) ICM {method}", names[:1], f32[:1], ref[:1],
+                          wit[:1], [VALUE_REL], own64=own[:1] if kron else None)
+        g32, gown = lml(pd, x, Y, method), lml(pd64, x64, Y64, method)
+        with _PlainRoutes():
+            gwit = lml(pd, x, Y, method)
+        err = max(err, _hold_model(
+            f"(d) ICM {method} (distinct B)", names, g32, refd, gwit,
+            [VALUE_REL] + [GRAD_REL] * (len(names) - 1),
+            own64=gown if kron else None))
+        if kron:
+            # eigh's VJP is defined where B's eigenvalues are distinct: the
+            # kron float64 gradient is the dense one's
+            for nm, a, b in zip(names, gown, refd):
+                e = _rel(a, b)
+                print(f"(d) ICM kron (distinct B) float64 {nm}: {e:.3e} of the "
+                      f"dense float64's norm (limit 1e-6)", flush=True)
+                check(e <= 1e-6, f"(d) kron float64 {nm} misses the dense one")
+        out[method] = {"ms": ms, "value64": float(own[0]), "err": err}
+    gap = abs(out["kron"]["value64"] - out["dense"]["value64"])
+    print(f"(d) kron - dense in float64: {gap:.3e} (limit 1e-6 of "
+          f"{abs(out['dense']['value64']):.6e})", flush=True)
+    check(gap <= 1e-6 * abs(out["dense"]["value64"]), "(d) kron and dense "
+          "disagree in float64")
+
+    lmc = mo.lmc([gt.se(2.0, 2.0, device=DEV),
+                  gt.matern(1.0, 1.5, 2.0, device=DEV)], T_ICM, noise=0.5)
+    mask = np.random.default_rng(3).uniform(size=(N_ICM, T_ICM)) >= 0.1
+
+    def lmc_vg(q, x_, Y_):
+        return _value_and_grads(torch, gt, lambda r: mo.log_marginal_likelihood(
+            r, x_, Y_), q)
+
+    f32, f64, fw = _three(torch, gt, lmc_vg, lmc, x, Y)
+    lnames = ["value"] + [f"d{i}" for i in range(len(gt.params.leaves(lmc)))]
+    out["lmc_err"] = _hold_model("(d) LMC dense", lnames, f32, f64, fw,
+                                 [VALUE_REL] + [GRAD_REL] * (len(lnames) - 1))
+
+    def masked(q, x_, Y_):
+        return [mo.log_marginal_likelihood(q, x_, Y_, mask=mask)]
+
+    f32, f64, fw = _three(torch, gt, masked, p, x, Y)
+    out["masked_err"] = _hold_model("(d) ICM masked", ["value"], f32, f64, fw,
+                                    [VALUE_REL])
+    xs = torch.linspace(-10.0, 10.0, S_ICM, device=DEV)[:, None]
+
+    def fit(q, x_, Y_, xs_):
+        s = mo.fit(q, x_, Y_, xs_)
+        return [s.mean, s.variance]
+
+    f32, f64, fw = _three(torch, gt, fit, p, x, Y, xs)
+    out["fit_err"] = _hold_model("(d) ICM fit (kron)", ["mean", "variance"],
+                                 f32, f64, fw, [MEAN_LIMIT, VAR_LIMIT])
+    return out
+
+
+def _mf_noise(torch, gi, seed, n, t, s):
+    """The base noise logml_value_and_grad_iterative draws with a
+    preconditioner from a generator seeded ``seed``: the Rademacher probe
+    base, then the Normal SLQ base, (N, T, s) each, float32."""
+    key = torch.Generator(device=DEV).manual_seed(seed)
+    return (gi._rademacher(key, (n, t, s), torch.float32, DEV),
+            gi._normal(key, (n, t, s), torch.float32, DEV))
+
+
+class _AlignedEigh:
+    """Inside: ``chol.eigh`` of a matrix shaped as ``ref`` returns its
+    eigenvectors with the signs of ``ref``'s columns. B's eigenvectors are
+    unique up to sign where its eigenvalues are distinct, so a float64 run
+    of the matrix-free estimator then rotates its probes by the float32
+    run's basis: the same estimator on the same probes."""
+
+    def __init__(self, ref):
+        self.ref = ref
+
+    def __enter__(self):
+        from gpx_torch.ops import chol
+
+        self._saved = eigh = chol.eigh
+        ref = self.ref
+
+        def aligned(a):
+            lam, q = eigh(a)
+            if a.shape == ref.shape:
+                q = q * (q * ref.to(q.dtype)).sum(dim=0).sign()
+            return lam, q
+
+        chol.eigh = aligned
+
+    def __exit__(self, *exc):
+        from gpx_torch.ops import chol
+
+        chol.eigh = self._saved
+
+
+def _matrix_free_case(torch, gt, dense_small):
+    """(e) The matrix-free ICM at N = 16,384, T = 8 (16 probes, 32 Lanczos
+    steps, cg_tol 1e-5, rank-64 Kronecker preconditioner): ms/eval, CG
+    iterations and launches on the bench problem; gram_matvec at the T R =
+    136 columns of its CG block and cross_matvec at fit_iterative's shape
+    against float64; the value and every leaf's gradient against the same
+    estimator in float64 on the same probes, on the instance with distinct
+    B eigenvalues; at N = 4096, T = 4, four seeds against the dense float64
+    logML of (d); fit_iterative's mean to 1,024 points against float64."""
+    from gpx_torch.models import gp_iterative as gi
+    from gpx_torch.models import multioutput as mo
+    from gpx_torch.models import multioutput_iterative as mi
+    from gpx_torch.ops import chol
+
+    p, x, Y = _icm_problem(torch, gt, N_MF, T_MF)
+    key = torch.Generator(device=DEV).manual_seed(0)
+    res, wall, launches = _counted(torch, lambda: mi.logml_value_and_grad_iterative(
+        p, x, Y, key, **MF))
+    ms = [1e3 * _counted(torch, lambda: mi.logml_value_and_grad_iterative(
+        p, x, Y, torch.Generator(device=DEV).manual_seed(0), **MF))[1]
+        for _ in range(3)]
+    print(f"(e) matrix-free ICM N={N_MF} T={T_MF}: {statistics.median(ms):.2f} ms"
+          f"/eval (median of {[round(v, 2) for v in ms]}); CG {res.cg_iters} "
+          f"iterations, converged {res.cg_converged}; launches per eval "
+          f"{json.dumps(_per(launches, 1))}", flush=True)
+    check(launches["gram_matvec"] > 0, "(e) gram_matvec was not launched")
+    check(res.cg_converged, "(e) CG did not converge")
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    k64 = _f64_kernel(gt, p.kernel)
+    r = T_MF * (MF["n_probes"] + 1)
+    xs = torch.linspace(-10.0, 10.0, S_ICM, device=DEV)[:, None]
+    mv_err = max(
+        _hold_gram_matvec(torch, f"(e) gram_matvec n={N_MF} d=1 r={r} (T R)",
+                          p.kernel, k64, x, torch.randn(
+                              (N_MF, r), generator=gen, device=DEV), 0.0),
+        _hold_cross_matvec(torch, f"(e) cross_matvec ({S_ICM}, {N_MF}) d=1 "
+                           f"r={T_MF}", p.kernel, k64, xs, x, torch.randn(
+                               (N_MF, T_MF), generator=gen, device=DEV)))
+
+    pd, _, _ = _icm_problem(torch, gt, N_MF, T_MF, distinct=True)
+    pn, sn = _mf_noise(torch, gi, 0, N_MF, T_MF, MF["n_probes"])
+    core = {k: MF[k] for k in ("lanczos_iters", "cg_tol", "precond_rank")}
+
+    def est(q, x_, Y_, pn_, sn_):
+        r = mi._logml_value_and_grad_iterative(q, x_, Y_, probe_noise=pn_,
+                                               slq_noise=sn_, **core)
+        return [r.value] + list(gt.params.leaves(r.grads))
+
+    first = mi.logml_value_and_grad_iterative(
+        pd, x, Y, torch.Generator(device=DEV).manual_seed(0), **MF)
+    f32 = est(pd, x, Y, pn, sn)
+    check(float(f32[0]) == float(first.value), "(e) replayed noise differs")
+    qb32 = chol.eigh(mo.coregion_matrix(pd))[1]
+    qb64 = chol.eigh(mo.coregion_matrix(_to64(gt, pd)))[1]
+    flips = int(((qb32.double() * qb64).sum(dim=0) < 0).sum())
+    with _AlignedEigh(qb32):
+        f64 = est(_to64(gt, pd), x.double(), Y.double(), pn.double(),
+                  sn.double())
+        basis = float((chol.eigh(mo.coregion_matrix(_to64(gt, pd)))[1]
+                       - qb32.double()).abs().max())
+    with _PlainRoutes():
+        fw = est(pd, x, Y, pn, sn)
+    print(f"(e) distinct B: float64 eigh(B) columns with the other sign "
+          f"{flips} of {T_MF}, aligned to float32's; then max |diff| {basis:.3e}"
+          f" (limit 1e-4)", flush=True)
+    check(basis <= 1e-4, "(e) the float64 oracle rotates by another basis")
+    names = ["value", "dh", "dsigma", "dw", "dkappa", "dnoise"]
+    err = _hold_model("(e) matrix-free (distinct B)", names, f32, f64, fw,
+                      [VALUE_REL] + [GRAD_REL] * (len(names) - 1))
+
+    ps, xs4, Ys = _icm_problem(torch, gt, N_ICM, T_ICM)
+    vals = [float(mi.logml_value_and_grad_iterative(
+        ps, xs4, Ys, torch.Generator(device=DEV).manual_seed(s), **MF).value)
+        for s in range(4)]
+    limit = 5e-3 * abs(dense_small) + 0.5
+    print(f"(e) N={N_ICM} T={T_ICM}: estimates {[round(v, 3) for v in vals]} "
+          f"(sd {statistics.stdev(vals):.3f}) against the dense float64 logML "
+          f"{dense_small:.4f}; each within {limit:.3f} (the JAX package's "
+          f"tests' limit, 5e-3 |value| + 0.5)", flush=True)
+    check(all(abs(v - dense_small) <= limit for v in vals),
+          "(e) an estimate misses the dense float64 logML")
+
+    def fit(q, x_, Y_, xs_):
+        return [mi.fit_iterative(q, x_, Y_, xs_, cg_tol=MF["cg_tol"],
+                                 precond_rank=MF["precond_rank"],
+                                 variance="none").mean]
+
+    post, wall_f, fl = _counted(torch, lambda: fit(p, x, Y, xs))
+    print(f"(e) fit_iterative (mean) N={N_MF} T={T_MF} -> {S_ICM} points: "
+          f"{1e3 * wall_f:.2f} ms; launches {json.dumps(fl)}", flush=True)
+    check(fl["cross_matvec"] > 0, "(e) fit_iterative did not launch cross_matvec")
+    check(fl["gram_matvec"] > 0, "(e) fit_iterative did not launch gram_matvec")
+    f32, f64, fw = _three(torch, gt, fit, p, x, Y, xs)
+    ferr = _hold_model("(e) fit_iterative", ["mean"], f32, f64, fw, [MEAN_LIMIT])
+    return {"ms_per_eval": statistics.median(ms), "cg_iters": res.cg_iters,
+            "launches_per_eval": _per(launches, 1), "err": err,
+            "matvec_err": mv_err, "cg_iters_distinct": first.cg_iters,
+            "small_estimates": vals, "fit_ms": 1e3 * wall_f, "fit_err": ferr,
+            "fit_launches": fl}
+
+
+def _fd_check(torch, gt, label, value, tree, grads, rel=1e-6, limit=1e-4):
+    """The float64 oracle's gradient through eigh against central
+    differences of its value (step ``rel`` of each scalar leaf): its
+    eigenvectors' VJP divides by eigenvalue gaps, which the value does not;
+    each leaf within ``limit`` of the gradient's norm."""
+    ls = gt.params.leaves(tree)
+    norm = math.sqrt(sum(float(g) ** 2 for g in grads))
+    for i, (t, g) in enumerate(zip(ls, grads)):
+        h = rel * max(abs(float(t)), 1.0)
+        vals = []
+        for sgn in (1.0, -1.0):
+            moved = [u + sgn * h if j == i else u for j, u in enumerate(ls)]
+            vals.append(float(value(gt.params.unflatten(tree, moved))))
+        fd = (vals[0] - vals[1]) / (2.0 * h)
+        e = abs(fd - float(g)) / norm
+        print(f"{label} float64 d{i}: autograd {float(g):.8e} central "
+              f"difference {fd:.8e} ({e:.3e} of the gradient's norm, limit "
+              f"{limit:g})", flush=True)
+        check(e <= limit, f"{label}: the float64 gradient misses its central "
+              f"difference")
+
+
+def _grid_case(torch, gt):
+    """(f) benchmarks/grid_scale.py's lattice, 4096 x 64 at seed 42: SE(2, 2)
+    on the 1-D axis, Matern(1, 3/2, 1) on the 64 points of the D = 2 axis,
+    noise 0.5: the logML and its full gradient against float64 (through
+    both axes' eigh), then fit to 1,024 points."""
+    from gpx_torch.models import gridgp
+
+    n1, n2 = GRID
+    rng = np.random.default_rng(42)
+    a1 = np.sort(rng.uniform(-10, 10, n1))[:, None]
+    a2 = rng.uniform(-2, 2, size=(n2, 2))
+    y = 3.0 * np.sin(0.7 * a1) + 0.5 * rng.normal(size=(n1, n2))
+    axes = [torch.as_tensor(a, dtype=torch.float32, device=DEV) for a in (a1, a2)]
+    Y = torch.as_tensor(y, dtype=torch.float32, device=DEV)
+    p = gridgp.grid([gt.se(2.0, 2.0, device=DEV),
+                     gt.matern(1.0, 1.5, 1.0, device=DEV)], noise=0.5)
+
+    def lml(q, a1_, a2_, Y_):
+        return _value_and_grads(torch, gt, lambda r: gridgp.log_marginal_likelihood(
+            r, [a1_, a2_], Y_), q)
+
+    f32, f64, fw = _three(torch, gt, lml, p, *axes, Y)
+    _, _, per_eval = _counted(torch, lambda: lml(p, *axes, Y))
+    ms = [1e3 * _counted(torch, lambda: lml(p, *axes, Y))[1] for _ in range(3)]
+    ms_v = [1e3 * _counted(torch, lambda: gridgp.log_marginal_likelihood(
+        p, axes, Y))[1] for _ in range(3)]
+    print(f"(f) grid {n1} x {n2}: logML {statistics.median(ms_v):.2f} ms/eval, "
+          f"with its gradient {statistics.median(ms):.2f} ms/eval (medians of "
+          f"{[round(v, 2) for v in ms_v]}, {[round(v, 2) for v in ms]}); value "
+          f"{float(f32[0]):.8e} (float64 {float(f64[0]):.8e}); launches per "
+          f"eval {json.dumps(_per(per_eval, 1))}", flush=True)
+    check(per_eval["gram"] >= 2, "(f) grid: the Gram kernel was not launched "
+          "for both axes")
+    gerr = max(_hold_gram(torch, gt, f"(f) grid axis {i}", k, a, nugget=0.0)
+               for i, (k, a) in enumerate(zip(p.kernels, axes)))
+    names = ["value"] + ["d" + n for n in ("se_h", "se_sigma", "matern_sigma",
+                                           "matern_l", "noise")]
+    err = _hold_model("(f) grid", names, f32, f64, fw,
+                      [VALUE_REL] + [GRAD_REL] * (len(names) - 1))
+    _fd_check(torch, gt, "(f) grid", lambda q: gridgp.log_marginal_likelihood(
+        q, [a.double() for a in axes], Y.double()), _to64(gt, p), f64[1:])
+    xs = torch.cat([torch.linspace(-10.0, 10.0, S_ICM, device=DEV)[:, None],
+                    torch.zeros((S_ICM, 2), device=DEV)], dim=1)
+
+    def fit(q, a1_, a2_, Y_, xs_):
+        s = gridgp.fit(q, [a1_, a2_], Y_, xs_)
+        return [s.mean, s.variance]
+
+    f32, f64, fw = _three(torch, gt, fit, p, *axes, Y, xs)
+    ferr = _hold_model("(f) grid fit", ["mean", "variance"], f32, f64, fw,
+                       [MEAN_LIMIT, VAR_LIMIT])
+    return {"ms_per_eval": statistics.median(ms_v),
+            "ms_per_eval_with_grad": statistics.median(ms), "err": err,
+            "gram_err": gerr,
+            "fit_err": ferr, "launches_per_eval": _per(per_eval, 1)}
+
+
+def phase_models(torch, gt):
+    """Phase 7: the sparse and multi-output models at full width, (a)-(f),
+    each part's seconds."""
+    out, secs = {}, {}
+    x, y = _svgp_data(torch, N_SVGP)
+    for name, fn in (("sgpr", lambda: _sgpr_case(torch, gt, x, y)),
+                     ("svgp", lambda: _svgp_case(torch, gt, x, y)),
+                     ("svgp_mo", lambda: _mo_svgp_case(torch, gt, x))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    del x, y
+    for name, fn in (("icm", lambda: _icm_case(torch, gt)),
+                     ("matrix_free", lambda: _matrix_free_case(
+                         torch, gt, out["icm"]["dense"]["value64"])),
+                     ("grid", lambda: _grid_case(torch, gt))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = secs
+    out["not_held"] = list(NOT_HELD)
+    print(f"phase 7: {len(NOT_HELD)} outputs not held (float32 algorithm): "
+          f"{json.dumps(NOT_HELD)}", flush=True)
+    rounded = {k: round(v, 1) for k, v in secs.items()}
+    print(f"phase 7 seconds: {json.dumps(rounded)}", flush=True)
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -3876,6 +4661,11 @@ def main() -> int:
     if "--kernel-times" in sys.argv[1:]:
         phase_kernel_times(torch, gt)
         print(f"total {time.perf_counter() - t0:.1f} s (kernel times)", flush=True)
+        return 0
+    if "--models-only" in sys.argv[1:]:
+        summary = {"models": phase_models(torch, gt)}
+        print("summary: " + json.dumps(summary), flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s (models only)", flush=True)
         return 0
     if "--bench-only" in sys.argv[1:]:
         records = {name: {} for name in _counters()}
@@ -3903,6 +4693,7 @@ def main() -> int:
     summary["sampler"], case = phase_sampler(torch, gt, records)
     summary["workflows"] = phase_workflows(torch, gt, case,
                                            summary["sampler"])
+    summary["models"] = phase_models(torch, gt)
     print("summary: " + json.dumps(summary), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     order = ("gram", "trmm", "syrk_lower", "chol_inv_tile", "chol_inv_tile_off",

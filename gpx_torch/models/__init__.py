@@ -1,7 +1,23 @@
 """GP models of the port: ``gp`` (the marginal likelihood, its gradient
-and prediction), ``gp_iterative`` (the matrix-free path) and ``optimize``
-(type-II ML / MAP)."""
+and prediction), ``gp_iterative`` (the matrix-free path), ``optimize``
+(type-II ML / MAP), the sparse models ``sparse`` (SGPR), ``svgp`` and
+``svgp_mo`` (multi-output SVGP), and the structured ones ``multioutput``
+(ICM / LMC), ``multioutput_iterative`` (matrix-free ICM / LMC) and
+``gridgp`` (separable kernels on a lattice)."""
 
-from gpx_torch.models import gp, gp_iterative, optimize
+from gpx_torch.models import (
+    gp,
+    gp_iterative,
+    gridgp,
+    multioutput,
+    multioutput_iterative,
+    optimize,
+    sparse,
+    svgp,
+    svgp_mo,
+)
 
-__all__ = ["gp", "gp_iterative", "optimize"]
+__all__ = [
+    "gp", "gp_iterative", "gridgp", "multioutput", "multioutput_iterative",
+    "optimize", "sparse", "svgp", "svgp_mo",
+]

@@ -122,15 +122,16 @@ def stream(device) -> ctypes.c_void_p:
 
 def require(t, name: str, *, ndim: int, device) -> None:
     """Raise unless ``t`` is a float32 tensor on ``device`` with ``ndim``
-    dimensions and unit stride along its last one (a row-major matrix,
-    or a view of one, with a leading dimension)."""
+    dimensions and unit stride along its last one where that has more than
+    one entry (a row-major matrix, or a view of one, with a leading
+    dimension; numpy's ``x[:, None]`` has stride 0 there)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
         raise ValueError(f"{name} must be float32, got {t.dtype}")
     if t.ndim != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
-    if t.numel() and t.stride(-1) != 1:
+    if t.numel() and t.shape[-1] > 1 and t.stride(-1) != 1:
         raise ValueError(f"{name} needs unit stride in its last dimension")
     if ndim == 2 and t.shape[0] > 1 and t.stride(0) < t.shape[1]:
         raise ValueError(f"{name}: leading dimension below its width")

@@ -16,6 +16,18 @@ def cholesky(a):
     return l + fail[..., None, None]
 
 
+def eigh(a):
+    """``(eigenvalues, eigenvectors)`` of a symmetric matrix; NaN throughout
+    where the algorithm fails (a matrix with non-finite entries), as the
+    JAX package's returns, instead of raising. The NaN is built from ``a``,
+    so a gradient through a failed decomposition is NaN too."""
+    try:
+        return torch.linalg.eigh(a)
+    except torch.linalg.LinAlgError:
+        nan = a * float("nan")
+        return torch.diagonal(nan, dim1=-2, dim2=-1), nan
+
+
 def _solve(t, b, upper: bool):
     vec = b.ndim == 1
     out = torch.linalg.solve_triangular(t, b[:, None] if vec else b,

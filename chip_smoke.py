@@ -118,7 +118,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``fit_iterative``;
    (f) benchmarks/grid_scale.py's 4096 x 64 lattice, the logML and its
    gradient, and fit;
-8. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+8. classification and the state-space models (``phase_statespace``), in
+   float32 on the card against the same code in float64: (a) softmax-
+   Laplace ``classify`` on examples/mnist_classify.py's blob digits at
+   MNIST's shape (C = 10, D = 784, N = 8192 train, M = 2048 test) with
+   the example's shared kernel and a per-class list: the Gram kernel at
+   (8192, 784) and the 8192 x 2048 cross block against float64 and timed,
+   ``fit`` (Newton count, ms per iteration and per fit, peak memory),
+   ``latent_predict`` and ``predict`` (n_mc = 2000, held-out accuracy);
+   (b) examples/temperature_dlm.py's DLM (d_state 13, 8 sensors, T =
+   1008, 10% NaN): the Kalman filter, smoother, forecast and conjugate
+   filter, FFBS, and Gibbs sweeps; (c) examples/dlm_gp.py's DLM-GP (8
+   sensors, T = 200) and a 16 x 16 network (T = 720): the replicated GP
+   likelihood, the filter with V = Kxx, ``simulate`` and joint Gibbs
+   sweeps with their Gram launches; (d) the kron ICM's and the grid's
+   float32 gradients, which eigh's VJP made NaN, held against float64;
+9. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
     python3 chip_smoke.py --no-iterative
 
@@ -158,6 +173,10 @@ line.
     python3 chip_smoke.py --models-only
 
 runs phase 1 and phase 7 only, with no ``kernels`` or ``ok`` line.
+
+    python3 chip_smoke.py --classify-dlm-only
+
+runs phase 1 and phase 8 only, with no ``kernels`` or ``ok`` line.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -781,10 +800,11 @@ def _families(gt, dtype=None):
     }
 
 
-def _hold_gram(torch, gt, label, kern, x, nugget=1e-3, x2=None) -> float:
+def _hold_gram(torch, gt, label, kern, x, nugget=1e-3, x2=None,
+               ulps=FAMILY_ULPS) -> float:
     """The Gram kernel against its plain version in float64 on the same f32
-    x (and x2 for a cross Gram), within FAMILY_ULPS of each entry's scale;
-    returns the largest absolute error."""
+    x (and x2 for a cross Gram), within ``ulps`` (FAMILY_ULPS) of each
+    entry's scale; returns the largest absolute error."""
     from gpx_torch.ops import cuda_gram
     from gpx_torch.ops.distance import sq_distances
     from gpx_torch.ops.terms import term_dr2
@@ -801,7 +821,7 @@ def _hold_gram(torch, gt, label, kern, x, nugget=1e-3, x2=None) -> float:
     shape = (f"n={x.shape[0]}" if x2 is None
              else f"{x.shape[0]} x {x2.shape[0]}")
     return _hold_ulps(torch, f"gram {label} {shape} d={x.shape[1]}", got,
-                      want, scale, FAMILY_ULPS)
+                      want, scale, ulps)
 
 
 def phase_families(torch, gt):
@@ -4630,9 +4650,648 @@ def phase_models(torch, gt):
     out["not_held"] = list(NOT_HELD)
     print(f"phase 7: {len(NOT_HELD)} outputs not held (float32 algorithm): "
           f"{json.dumps(NOT_HELD)}", flush=True)
+    # the kron and grid gradients hold the eigenbases constant: no eigh VJP
+    eig = [s for s in NOT_HELD
+           if s.startswith(("(d) ICM kron", "(f) grid value", "(f) grid d"))]
+    check(not eig, f"phase 7: the eigenbasis gradients not held: {eig}")
     rounded = {k: round(v, 1) for k, v in secs.items()}
     print(f"phase 7 seconds: {json.dumps(rounded)}", flush=True)
     return out
+
+
+# -- phase 8: classification and the state-space models ---------------------
+
+N_CL, M_CL, C_CL, D_CL = 8192, 2048, 10, 784   # MNIST's shape, blob digits
+N_MC = 2000                       # predict's Monte-Carlo draws (its default)
+CL_REL = 1e-3                     # f, pi, mu and sigma: normwise
+# Newton steps at most, cut in depth from fit's 50: float64 stops by its
+# tol within it (3 and 9 steps), float32 cannot resolve tol at |psi| ~ 1e4
+# and ran all 50 (27 s on an H100 80GB HBM3 at 700 W)
+MAX_NEWTON = 12
+T_TEMP, AHEAD = 1008, 48          # temperature_dlm.py: six weeks hourly
+N_SENSORS = 8
+T_GP, GRID_SIDE, T_NET = 200, 16, 720   # dlm_gp.py's case; the network's
+DLM_REL = 1e-3                    # the filters' and smoother's outputs
+# Gibbs sweeps, cut in depth from the examples' 500 so that phase 8 fits
+# its time (on an H100 80GB HBM3 at 700 W, 4.7 s a sweep of the temperature
+# DLM, 4.5 s of the 256-sensor DLM-GP: launch-bound loops over time);
+# widths (classes, D, d_state, sensors) are never cut
+SWEEPS, EXAMPLE_SWEEPS = 3, 500
+LOCKSTEP_N = (2048, 4096, 8192)   # --newton-lockstep's sizes
+
+
+def _hold_lazy(label, names, got, want, base, witness=None):
+    """``_hold_model`` with the float32 plain route (``witness()``) run only
+    where an output misses its base limit or is not finite: at D = 784 the
+    plain route is as dear as the kernel route. ``witness=None``: a path
+    with no CUDA kernel (the DLM's), whose float32 plain route is itself,
+    so each output is held within its base limit. Returns the largest
+    error."""
+    miss = witness is not None and any(
+        not bool(g.isfinite().all()) or _rel(g, w) > b
+        for g, w, b in zip(got, want, base))
+    return _hold_model(label, names, got, want, witness() if miss else want,
+                       base)
+
+
+def _digits(torch):
+    """examples/mnist_classify.py's synthetic blob digits at MNIST's shape:
+    ``synthetic_digits`` (numpy seed 0; C = 10 centres ~ 2 N(0, I) in D =
+    784, each class's 1024 points its centre + 0.8 N(0, I)), then the
+    example's permutation from the same generator; the first N = 8192
+    train, the next M = 2048 test, float32 on the card."""
+    rng = np.random.default_rng(0)
+    n_per = (N_CL + M_CL) // C_CL
+    centers = rng.normal(size=(C_CL, D_CL)) * 2.0
+    xs = np.concatenate([centers[c] + rng.normal(size=(n_per, D_CL)) * 0.8
+                         for c in range(C_CL)]).astype(np.float32)
+    ys = np.repeat(np.arange(C_CL), n_per)
+    perm = rng.permutation(len(xs))
+    xs, ys = xs[perm], ys[perm]
+    return (torch.as_tensor(xs[:N_CL], device=DEV),
+            torch.as_tensor(ys[:N_CL], device=DEV),
+            torch.as_tensor(xs[N_CL:N_CL + M_CL], device=DEV),
+            ys[N_CL:N_CL + M_CL])
+
+
+def _class_kernels(torch, gt, x):
+    """A list of C SE + White kernels whose lengthscales are spread
+    geometrically over 0.5-2x the median pairwise distance of the first
+    2048 training points, so that every class's Gram is dense."""
+    med = float(torch.pdist(x[:2048].double()).median())
+    return med, [gt.se(1.0, float(l), device=DEV) + gt.white(0.1, device=DEV)
+                 for l in med * np.geomspace(0.5, 2.0, C_CL)]
+
+
+def _f64_kernels(gt, kernels):
+    if isinstance(kernels, list):
+        return [_f64_kernel(gt, k) for k in kernels]
+    return _f64_kernel(gt, kernels)
+
+
+def _gram_784(torch, gt, kern, x, xs):
+    """The Gram kernel at classification's shapes, (8192, 784) with the
+    fit's jitter and the 8192 x 2048 cross block: against float64 within
+    FAMILY_ULPS + (D + 2) / 2 f32 ulps of each entry's scale (r2 is a
+    784-term float32 sum: its rounding is at most (D + 2) u r2, which
+    moves K by (D + 2) / 2 u of the scale's 2 r2 |dK/dr2|), and its
+    time beside the FP32 bound and the fill floor (writing N M floats).
+    The bound counts 3 D operations (a difference, a multiply, an add)
+    for each r2 the function needs: N (N + 1) / 2 of them for the square
+    Gram, which is symmetric, N M for the cross block."""
+    from gpx_torch.ops import cuda_gram
+
+    d = x.shape[1]
+    ulps = FAMILY_ULPS + (d + 2) / 2.0
+    out = {"err": max(
+        _hold_gram(torch, gt, "(a) classify K + 1e-6 I", kern, x, nugget=1e-6,
+                   ulps=ulps),
+        _hold_gram(torch, gt, "(a) classify cross", kern, x, nugget=0.0, x2=xs,
+                   ulps=ulps))}
+    for name, m, fn in (
+            ("square", x.shape[0],
+             lambda: cuda_gram.gram_cuda(kern, x, nugget=1e-6)),
+            ("cross", xs.shape[0], lambda: cuda_gram.gram_cuda(kern, x, xs))):
+        n = x.shape[0]
+        fn()
+        ms, all_ms = _median_ms(torch, fn)
+        fill_ms = _median_ms(torch, lambda: torch.empty(
+            (n, m), device=DEV).fill_(1.0))[0]
+        square = name == "square"
+        pairs = n * (n + 1) / 2.0 if square else n * m
+        bound = bound_ms(flops=3.0 * pairs * d, nbytes=4.0 * (
+            n * m + (n if square else n + m) * d))
+        print(f"(a) gram {name} {n} x {m} d={d}: {ms:.3f} ms (median of "
+              f"{all_ms}), bound {bound[0]:.3f} ms ({bound[1]}), fill floor "
+              f"{fill_ms:.3f} ms", flush=True)
+        out[name] = {"ms": ms, "bound_ms": bound[0], "fill_ms": fill_ms}
+    return out
+
+
+def _n_iters_reason(torch, classify, r32, tol=1e-4):
+    """Why float32's Newton count may differ from float64's: the stopping
+    rule compares float32 values of psi = log p(y | f) - a^T f / 2, a sum
+    of n = C N + 2 N terms, whose rounding in any summation order is
+    bounded by (n - 1) u sum |terms| (u = eps / 2), and no smaller than
+    what the log-likelihood's terms alone give; where that bound exceeds
+    tol, float32 may stop at another step than float64, or run to
+    max_iters. Returns the bound and the reason as text."""
+    f, y1 = r32.f.double(), r32.y_onehot.double()
+    c, n = f.shape
+    terms = float(torch.sum(torch.abs(torch.sum(y1 * f, dim=0)))
+                  + torch.sum(torch.abs(torch.logsumexp(f, dim=0))))
+    bound = (c * n + 2 * n - 1) * 0.5 * EPS32 * terms
+    return bound, (f"float32's psi sums {c * n + 2 * n} terms, the "
+                   f"log-likelihood's of |.| {terms:.1f}: its rounding may "
+                   f"reach {bound:.2e}, {'above' if bound > tol else 'not above'}"
+                   f" tol {tol:g}")
+
+
+def _classify_case(torch, gt, label, kern, x, y, xs, y_test):
+    """fit, latent_predict and predict for one kernel set, in float32 on the
+    card against the same code in float64."""
+    from gpx_torch.models import classify
+
+    kern64 = _f64_kernels(gt, kern)
+    torch.cuda.reset_peak_memory_stats()
+    r32, wall, launches = _counted(torch, lambda: classify.fit(
+        x, kern, y, C_CL, max_iters=MAX_NEWTON))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r64, wall64, _ = _counted(torch, lambda: classify.fit(
+        x.double(), kern64, y, C_CL, max_iters=MAX_NEWTON))
+    n32, n64 = int(r32.n_iters), int(r64.n_iters)
+    check(n64 < MAX_NEWTON, f"(a) {label}: float64 took all {MAX_NEWTON} "
+          f"Newton steps: the cut in depth changed its mode")
+    per_it = 1e3 * wall / (n32 + 1)   # the loop's steps and the final one
+    print(f"(a) classify {label}: fit {1e3 * wall:.1f} ms ({n32} Newton "
+          f"iterations + the final step: {per_it:.1f} ms each), float64 "
+          f"{1e3 * wall64:.1f} ms ({n64} iterations); peak memory "
+          f"{peak:.2f} GiB; launches {json.dumps(_per(launches, 1))}",
+          flush=True)
+    check(launches["gram"] == C_CL, f"(a) {label}: {launches['gram']} Gram "
+          f"launches per fit, not {C_CL}")
+    if n32 != n64:
+        bound, why = _n_iters_reason(torch, classify, r32)
+        print(f"(a) classify {label}: n_iters {n32} in float32, {n64} in "
+              f"float64: {why}", flush=True)
+        check(bound > 1e-4, f"(a) {label}: the Newton counts differ where "
+              f"float32 resolves the stopping rule")
+    else:
+        print(f"(a) classify {label}: n_iters {n32}, as in float64", flush=True)
+
+    plain = []
+
+    def witness_fit():
+        if not plain:
+            with _PlainRoutes():
+                plain.append(classify.fit(x, kern, y, C_CL,
+                                          max_iters=MAX_NEWTON))
+        return plain[0]
+
+    names = ["log_marginal", "f", "pi"]
+    err = _hold_lazy(f"(a) classify {label} fit", names,
+                     [r32.log_marginal, r32.f, r32.pi],
+                     [r64.log_marginal, r64.f, r64.pi],
+                     [VALUE_REL, CL_REL, CL_REL],
+                     lambda: (lambda r: [r.log_marginal, r.f, r.pi])(
+                         witness_fit()))
+    (mu, sigma), wall_lp, lp_launches = _counted(
+        torch, lambda: classify.latent_predict(r32, x, kern, xs))
+    mu64, sigma64 = classify.latent_predict(r64, x.double(), kern64,
+                                            xs.double())
+    print(f"(a) classify {label}: latent_predict {1e3 * wall_lp:.1f} ms at M = "
+          f"{xs.shape[0]}; launches {json.dumps(_per(lp_launches, 1))}",
+          flush=True)
+    check(lp_launches["gram"] == C_CL, f"(a) {label}: latent_predict's cross "
+          f"Grams did not go through the Gram kernel")
+
+    def witness_lp():
+        with _PlainRoutes():
+            return list(classify.latent_predict(witness_fit(), x, kern, xs))
+
+    err = max(err, _hold_lazy(f"(a) classify {label} latent_predict",
+                              ["mu", "sigma"], [mu, sigma], [mu64, sigma64],
+                              [CL_REL, CL_REL], witness_lp))
+    diag = torch.diagonal(sigma, dim1=1, dim2=2)
+    print(f"(a) classify {label}: sigma's smallest diagonal entry "
+          f"{float(diag.min()):.4e}", flush=True)
+    check(bool((diag >= 0).all()), f"(a) {label}: a negative latent variance")
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    probs, wall_p, _ = _counted(torch, lambda: classify.predict(
+        gen, r32, x, kern, xs, n_mc=N_MC))
+    acc = float(np.mean(probs.argmax(-1).cpu().numpy() == y_test))
+    rows = float((probs.sum(-1) - 1.0).abs().max())
+    print(f"(a) classify {label}: predict (n_mc = {N_MC}) {1e3 * wall_p:.1f} "
+          f"ms, held-out accuracy {acc:.4f} on {len(y_test)} points; rows sum "
+          f"to 1 within {rows:.2e}", flush=True)
+    check(bool(probs.isfinite().all()) and rows <= 1e-5,
+          f"(a) {label}: predict's probabilities")
+    return {"fit_ms": 1e3 * wall, "fit64_ms": 1e3 * wall64, "n_iters": n32,
+            "n_iters64": n64, "ms_per_newton": per_it, "peak_gib": peak,
+            "latent_ms": 1e3 * wall_lp, "predict_ms": 1e3 * wall_p,
+            "accuracy": acc, "err": err}
+
+
+def _first_newton_step(torch, gt, label, kern, x, y):
+    """The first Newton step from f = 0 at full width, ``(f_1, a_1, E,
+    chol(sum_c E_c), z)`` on the fit's Grams, in float32 on the card
+    against float64, each under ``_hold_model``'s rule; here an output
+    not held fails. E, its factor and z carry the batched (C, N, N) work;
+    ``f_1 = K a_1`` carries E's rounding times K's norm (``a_1 = b - E K
+    b + ...`` cancels), hence E's sums in float64."""
+    from gpx_torch.models import classify
+    from gpx_torch.ops.gram import gram
+
+    def step(kern_, x_):
+        k = torch.stack([gram(kc, x_, nugget=1e-6) for kc in kern_])
+        f0 = torch.zeros((C_CL, x_.shape[0]), dtype=k.dtype, device=k.device)
+        y1 = classify.encode_labels(y, C_CL).to(k.dtype)
+        f1, a1, _, e, m_chol, z = classify._newton_quantities(f0, k, y1)
+        return [f1, a1, e, m_chol, z]
+
+    before = len(NOT_HELD)
+    got = step(kern, x)
+    want = step(_f64_kernels(gt, kern), x.double())
+    with _PlainRoutes():
+        wit = step(kern, x)
+    err = _hold_model(f"(a) classify {label} first Newton step",
+                      ["f_1", "a_1", "E", "chol(sum E)", "z"], got, want, wit,
+                      [CL_REL] * 4 + [VALUE_REL])
+    check(len(NOT_HELD) == before, f"(a) {label}: the first Newton step is "
+          f"not held: {NOT_HELD[before:]}")
+    return err
+
+
+def _first_step_stages(torch, k32, k64):
+    """The first Newton step's stages at f = 0 (pi = 1/C) in float32
+    against float64 on the card, each from float64's input to that stage
+    rounded to float32, so each stage's own error shows: the Cholesky
+    factor of ``B = I + K / C``, the triangular solve ``L^-1 D^1/2`` and
+    the product ``E = inner^T inner`` in float32; on the card and on the
+    host's CPU (LAPACK)."""
+    n = k32.shape[1]
+
+    def chol(k):
+        return torch.linalg.cholesky(
+            torch.eye(n, dtype=k.dtype, device=k.device) + k / C_CL)
+
+    def solve(lc):
+        sqrt_pi = torch.full((C_CL, n), (1.0 / C_CL) ** 0.5, dtype=lc.dtype,
+                             device=lc.device)
+        return torch.linalg.solve_triangular(lc, torch.diag_embed(sqrt_pi),
+                                             upper=False)
+
+    def stages(k, lc, inner):
+        return chol(k), solve(lc), inner.mT @ inner
+
+    lc64 = chol(k64)
+    inner64 = solve(lc64)
+    want = [lc64, inner64, inner64.mT @ inner64]
+    for where, dev in (("card", k32.device), ("host CPU", "cpu")):
+        got = stages(k32.to(dev), want[0].float().to(dev),
+                     want[1].float().to(dev))
+        print(f"first step stages N={n}, {where}: Cholesky factor "
+              f"{_rel(got[0], want[0]):.3e}, triangular solve "
+              f"{_rel(got[1], want[1]):.3e}, E = inner^T inner in float32 "
+              f"{_rel(got[2], want[2]):.3e} of float64's norm", flush=True)
+        del got
+
+
+def phase_newton_lockstep(torch, gt):
+    """``--newton-lockstep``: the per-class classifier's Newton loop in
+    float32 beside float64 on the card at N = 2048, 4096 and 8192 (the
+    first N points of phase 8's data and kernels), MAX_NEWTON steps. Each
+    step prints psi in both, f's normwise error, and the local error: the
+    float32 step taken from float64's iterate against float64's step, so
+    a step's own error is told apart from the loop's compounding. At the
+    largest N, the first step's stages (``_first_step_stages``) and the
+    whole first step in float32 on the host's CPU and on the card against
+    the card's float64."""
+    from gpx_torch.models import classify
+    from gpx_torch.ops.gram import gram
+
+    x, y, _, _ = _digits(torch)
+    _, per_class = _class_kernels(torch, gt, x)
+    per64 = _f64_kernels(gt, per_class)
+    for n in LOCKSTEP_N:
+        k32 = torch.stack([gram(k, x[:n], nugget=1e-6) for k in per_class])
+        k64 = torch.stack([gram(k, x[:n].double(), nugget=1e-6)
+                           for k in per64])
+        y32 = classify.encode_labels(y[:n], C_CL).to(k32.dtype)
+        f32 = torch.zeros((C_CL, n), device=DEV)
+        f64, a32, a64 = f32.double(), torch.zeros_like(f32), f32.double()
+
+        def psi(f, a, yo):
+            return float(-0.5 * torch.sum(a * f)
+                         + classify.softmax_log_likelihood(f, yo))
+
+        for it in range(MAX_NEWTON):
+            local = classify._newton_quantities(f64.float(), k32, y32)[0]
+            f32, a32 = classify._newton_quantities(f32, k32, y32)[:2]
+            f64, a64 = classify._newton_quantities(f64, k64, y32.double())[:2]
+            print(f"lockstep N={n} step {it + 1}: psi {psi(f32, a32, y32):.6e} "
+                  f"(float64 {psi(f64, a64, y32.double()):.6e}); f err "
+                  f"{_rel(f32, f64):.3e}, local step err {_rel(local, f64):.3e};"
+                  f" max |f| {float(f32.abs().max()):.4e} (float64 "
+                  f"{float(f64.abs().max()):.4e})", flush=True)
+        if n == LOCKSTEP_N[-1]:
+            _first_step_stages(torch, k32, k64)
+            zero = torch.zeros((C_CL, n))
+            first = [classify._newton_quantities(zero.to(k), k, y.to(k))
+                     for k, y in ((k32.cpu(), y32.cpu()), (k32, y32),
+                                  (k64, y32.double()))]
+            for i, nm in ((0, "f_1"), (1, "a_1"), (3, "E")):
+                print(f"first step N={n} {nm}: float32 on the host CPU "
+                      f"{_rel(first[0][i], first[2][i].cpu()):.3e}, on the "
+                      f"card {_rel(first[1][i], first[2][i]):.3e} of float64's "
+                      f"norm", flush=True)
+            del first
+        del k32, k64
+        torch.cuda.empty_cache()
+
+
+def _classify_phase(torch, gt):
+    """(a) softmax-Laplace classification at MNIST's shape."""
+    x, y, xs, y_test = _digits(torch)
+    med, per_class = _class_kernels(torch, gt, x)
+    shared = gt.se(1.0, 8.0, device=DEV) + gt.white(0.1, device=DEV)
+    print(f"(a) classify: N = {N_CL}, M = {M_CL}, C = {C_CL}, D = {D_CL}; "
+          f"median pairwise distance {med:.2f}; fit's max_iters {MAX_NEWTON} "
+          f"(cut in depth from its default 50)", flush=True)
+    out = {"gram": _gram_784(torch, gt, per_class[0], x, xs),
+           "first_step_err": _first_newton_step(
+               torch, gt, "per-class SE + White", per_class, x, y)}
+    torch.cuda.empty_cache()
+    for label, kern in (("se(1, 8) + white(0.1)", shared),
+                        ("per-class SE + White", per_class)):
+        out[label] = _classify_case(torch, gt, label, kern, x, y, xs, y_test)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _temperature_model(gt, dtype):
+    from gpx_torch.models import dlm
+
+    base = (dlm.polynomial(1, device=DEV, dtype=dtype)
+            + dlm.seasonal(24, 3, device=DEV, dtype=dtype)
+            + dlm.seasonal(168, 3, device=DEV, dtype=dtype))
+    return dlm.replicate_observations(base, N_SENSORS)
+
+
+def _temperature_data(model):
+    """temperature_dlm.py's simulation with numpy noise (seed 0): x0 = 12
+    in the level, 1.5 and 0.8 in the first daily and weekly harmonics; W =
+    0.005 I, V = 0.3 I; 10% of the entries NaN."""
+    f, g = (t.double().cpu().numpy() for t in (model.f, model.g))
+    rng = np.random.default_rng(0)
+    x = np.zeros(g.shape[0])
+    x[0], x[1], x[7] = 12.0, 1.5, 0.8
+    ys = []
+    for _ in range(T_TEMP):
+        x = g @ x + np.sqrt(0.005) * rng.normal(size=x.shape[0])
+        ys.append(f @ x + np.sqrt(0.3) * rng.normal(size=f.shape[0]))
+    ys = np.array(ys)
+    ys[rng.uniform(size=ys.shape) < 0.1] = np.nan
+    return ys
+
+
+def _device_launches(torch, fn):
+    """CUDA kernels launched by ``fn()``, by the profiler's device events;
+    None where the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def _temperature_case(torch, gt):
+    """(b) temperature_dlm.py's model, polynomial(1) + seasonal(24, 3) +
+    seasonal(168, 3) over 8 sensors, on six weeks of hourly data."""
+    from gpx_torch.distributions import InverseGamma
+    from gpx_torch.models import dlm
+
+    m32, m64 = (_temperature_model(gt, dt) for dt in (torch.float32,
+                                                        torch.float64))
+    d_obs, d_state = m32.f.shape
+    ys_np = _temperature_data(m64)
+
+    def inputs(dtype):
+        return dict(ys=torch.as_tensor(ys_np, dtype=dtype, device=DEV),
+                    v=torch.full((d_obs,), 0.3, dtype=dtype, device=DEV),
+                    w=torch.full((d_state,), 0.005, dtype=dtype, device=DEV),
+                    m0=torch.zeros(d_state, dtype=dtype, device=DEV),
+                    c0=10.0 * torch.eye(d_state, dtype=dtype, device=DEV))
+
+    a, b = inputs(torch.float32), inputs(torch.float64)
+    ms = {}
+
+    def run(model, i, time_it=False):
+        def step(name, fn):
+            out, wall, _ = _counted(torch, fn)
+            if time_it:
+                ms[name] = 1e3 * wall
+            return out
+
+        dt = i["ys"].dtype
+        filt = step("filter", lambda: dlm.kalman_filter(
+            model, i["ys"], i["v"], i["w"], i["m0"], i["c0"]))
+        s_m, s_c = step("smooth", lambda: dlm.smooth(model, filt))
+        f_m, f_c = step("forecast", lambda: dlm.forecast(
+            model, filt.m[-1], filt.c[-1], i["v"], i["w"], AHEAD))
+        prior = InverseGamma(concentration=torch.tensor(3.0, dtype=dt,
+                                                        device=DEV),
+                             scale=torch.tensor(1.0, dtype=dt, device=DEV))
+        w_star = torch.full_like(i["w"], 0.01)    # temperature_dlm.py's
+        conj = step("conjugate filter", lambda: dlm.conjugate_filter(
+            model, i["ys"], w_star, i["m0"], i["c0"], prior))
+        return filt, [filt.log_likelihood, filt.m, filt.c, s_m, s_c, f_m, f_c,
+                      conj.m, conj.forecast_scale, conj.v_scale]
+
+    filt, got = run(m32, a, time_it=True)
+    _, want = run(m64, b)
+    names = ["log_likelihood", "m", "c", "smooth means", "smooth covs",
+             "forecast means", "forecast covs", "conjugate m",
+             "conjugate Student-t scales", "conjugate v_scale"]
+    err = _hold_lazy("(b) temperature DLM", names, got, want,
+                     [VALUE_REL] + [DLM_REL] * (len(names) - 1))
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    xs, wall, _ = _counted(torch, lambda: dlm.ffbs(gen, m32, filt, a["w"]))
+    ms["ffbs"] = 1e3 * wall
+    steps = 100                       # the profiler reads a 100-step filter
+    launches = _device_launches(torch, lambda: dlm.kalman_filter(
+        m32, a["ys"][:steps], a["v"], a["w"], a["m0"], a["c0"]))
+    per_step = "not measured" if launches is None else (
+        f"{launches / steps:.1f}")
+    print(f"(b) temperature DLM: d_state {d_state}, d_obs {d_obs}, T = "
+          f"{T_TEMP}, {int(torch.isnan(a['ys']).sum())} NaN entries; ms "
+          f"{json.dumps({k: round(v, 1) for k, v in ms.items()})}; device "
+          f"kernels per filter step {per_step}", flush=True)
+    # FFBS: a draw from the smoothing distribution, held by its z-scores
+    # against the smoother's marginals
+    s_m, s_c = got[3], got[4]
+    z = (xs - s_m) / torch.sqrt(torch.diagonal(s_c, dim1=1, dim2=2))
+    inside = float((z.abs() < 4.0).double().mean())
+    print(f"(b) FFBS: {inside:.4f} of the draw's entries within 4 sd of the "
+          f"smoothed means (limit 0.99)", flush=True)
+    check(inside >= 0.99, "(b) FFBS draws are not from the smoother's law")
+
+    prior = InverseGamma(concentration=torch.tensor(3.0, device=DEV),
+                         scale=torch.tensor(0.5, device=DEV))
+    res, wall_g, _ = _counted(torch, lambda: dlm.gibbs_sample(
+        0, m32, a["ys"], prior, prior, a["m0"], a["c0"], SWEEPS))
+    ok = all(bool(t.isfinite().all()) for t in res) and bool(
+        (res.v > 0).all() and (res.w > 0).all())
+    print(f"(b) gibbs_sample: {SWEEPS} sweeps (cut in depth from the "
+          f"example's {EXAMPLE_SWEEPS}), {1e3 * wall_g / SWEEPS:.1f} ms per "
+          f"sweep; last V mean {float(res.v[-1].mean()):.4f} (truth 0.3), "
+          f"last W mean {float(res.w[-1].mean()):.5f} (truth 0.005)",
+          flush=True)
+    check(ok, "(b) gibbs_sample: a draw is not finite or not positive")
+    return {"err": err, "ms": ms,
+            "launches_per_step": launches and launches / steps,
+            "ms_per_sweep": 1e3 * wall_g / SWEEPS}
+
+
+def _log_prior_kernel(torch, gt):
+    """dlm_gp.py's prior: Gamma(2, 2) on SE's h and sigma and White's
+    sigma."""
+    pr = gt.distributions.Gamma(concentration=torch.tensor(2.0, device=DEV),
+                                rate=torch.tensor(2.0, device=DEV))
+
+    def log_prior(kern):
+        c0, c1 = kern.kernels
+        return pr.logpdf(c0.h) + pr.logpdf(c0.sigma) + pr.logpdf(c1.sigma)
+
+    return log_prior
+
+
+def _dlmgp_case(torch, gt, label, locs, t_len):
+    """One DLM-GP: dlm_gp.py's truth, a local level shared by the sensors
+    with SE(1, 2) + White(0.2) spatial residuals, simulated by the port
+    (generator seed 0); its replicated GP likelihood and the filter with V
+    = Kxx against float64, the Gram kernel on the sensors against
+    float64, and SWEEPS joint Gibbs sweeps."""
+    from gpx_torch.distributions import InverseGamma
+    from gpx_torch.models import dlm, dlmgp
+
+    n = locs.shape[0]
+    model = dlm.replicate_observations(dlm.polynomial(1, device=DEV), n)
+    truth = gt.Parameters(mean=gt.zero(), kernel=gt.se(1.0, 2.0, device=DEV)
+                          + gt.white(0.2, device=DEV))
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    (states, ys), wall_s, _ = _counted(torch, lambda: dlmgp.simulate(
+        gen, model, truth, locs, torch.tensor(0.01, device=DEV),
+        torch.tensor([0.05], device=DEV), torch.zeros(1, device=DEV), t_len))
+    check(bool(ys.isfinite().all()), f"(c) {label}: simulate")
+    gerr = _hold_gram(torch, gt, f"(c) {label} Kxx", truth.kernel, locs)
+    resids = ys - states @ model.f.T
+    p64 = gt.Parameters(mean=gt.zero(), kernel=_f64_kernel(gt, truth.kernel))
+    kxx64 = p64.kernel.gram(locs.double(), nugget=1e-3)
+    m0, c0 = torch.zeros(1, device=DEV), 10.0 * torch.eye(1, device=DEV)
+    w = torch.tensor([0.05], device=DEV)
+
+    def outs(p, x_, r_, y_, kxx, m0_, c0_, w_):
+        filt = dlm.kalman_filter(dlm.DLM(model.f.to(y_.dtype),
+                                         model.g.to(y_.dtype)), y_, kxx, w_,
+                                 m0_, c0_)
+        return [dlmgp.replicated_log_marginal_likelihood(p, x_, r_),
+                filt.log_likelihood, filt.m]
+
+    got = outs(truth, locs, resids, ys, truth.kernel.gram(locs, nugget=1e-3),
+               m0, c0, w)
+    want = outs(p64, locs.double(), resids.double(), ys.double(), kxx64,
+                m0.double(), c0.double(), w.double())
+
+    def witness():
+        with _PlainRoutes():
+            return outs(truth, locs, resids, ys, truth.kernel.gram(
+                locs, nugget=1e-3), m0, c0, w)
+
+    err = _hold_lazy(f"(c) {label}", ["replicated logML",
+                                      "filter log-likelihood (V = Kxx)",
+                                      "filter means"], got, want,
+                     [VALUE_REL, VALUE_REL, DLM_REL], witness)
+    template = gt.Parameters(mean=gt.zero(), kernel=gt.se(0.5, 1.0, device=DEV)
+                             + gt.white(0.5, device=DEV))
+    prior_w = InverseGamma(concentration=torch.tensor(3.0, device=DEV),
+                           scale=torch.tensor(0.1, device=DEV))
+    res, wall, launches = _counted(torch, lambda: dlmgp.gibbs_sample(
+        0, model, ys, locs, template, _log_prior_kernel(torch, gt), prior_w,
+        m0, c0, SWEEPS, proposal_scale=0.1))
+    per = _per(launches, SWEEPS)
+    rate = float(res.accept_rate)
+    print(f"(c) {label}: {n} sensors, T = {t_len}; simulate "
+          f"{1e3 * wall_s:.1f} ms; gibbs_sample {SWEEPS} sweeps (cut in depth "
+          f"from the example's {EXAMPLE_SWEEPS}) {1e3 * wall / SWEEPS:.1f} ms "
+          f"per sweep, MH accept rate {rate:.2f}, last kernel draw "
+          f"{[round(float(v), 3) for v in res.kernel_flat[-1]]} (truth 1.0, "
+          f"2.0, 0.2); launches per sweep {json.dumps(per)}", flush=True)
+    check(launches["gram"] == 3 * SWEEPS, f"(c) {label}: {launches['gram']} "
+          f"Gram launches in {SWEEPS} sweeps, not 3 a sweep")
+    check(all(bool(t.isfinite().all()) for t in res[:3]),
+          f"(c) {label}: a Gibbs draw is not finite")
+    return {"err": err, "gram_err": gerr, "simulate_ms": 1e3 * wall_s,
+            "ms_per_sweep": 1e3 * wall / SWEEPS, "accept_rate": rate,
+            "launches_per_sweep": per}
+
+
+def _dlmgp_phase(torch, gt):
+    """(c) examples/dlm_gp.py's 8 sensors (U(0, 5)^2, numpy seed 0) at T =
+    200, then a 16 x 16 grid_locations network (256 sensors) at T = 720."""
+    from gpx_torch.models import dlmgp
+
+    locs8 = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.0, 5.0, (N_SENSORS, 2)), dtype=torch.float32, device=DEV)
+    net = dlmgp.grid_locations((0.0, GRID_SIDE - 1.0), (0.0, GRID_SIDE - 1.0),
+                               GRID_SIDE, GRID_SIDE, device=DEV)
+    return {"dlm_gp_8": _dlmgp_case(torch, gt, "dlm_gp.py 8 sensors", locs8,
+                                    T_GP),
+            "network_256": _dlmgp_case(torch, gt, f"{GRID_SIDE} x {GRID_SIDE}"
+                                       f" network", net, T_NET)}
+
+
+def _repaired_gradients(torch, gt):
+    """(d) phase 7's kron ICM on multioutput_scale.py's problem as drawn
+    (rank-2 W: B's eigenvalue 0.3 twice), whose float32 gradient through
+    eigh's VJP was NaN in h and sigma: every leaf held against the dense
+    float64 gradient, and the kron's float64 gradient equal to it. Phase 7
+    holds the grid's gradient (and the kron's at distinct eigenvalues)."""
+    from gpx_torch.models import multioutput as mo
+
+    before = len(NOT_HELD)
+    p, x, Y = _icm_problem(torch, gt, N_ICM, T_ICM)
+    names = ["value", "dh", "dsigma", "dw", "dkappa", "dnoise"]
+
+    def lml(q, x_, Y_, method):
+        return _value_and_grads(torch, gt, lambda r: mo.log_marginal_likelihood(
+            r, x_, Y_, method=method), q)
+
+    p64, x64, Y64 = _to64(gt, p), x.double(), Y.double()
+    dense64, kron64 = lml(p64, x64, Y64, "dense"), lml(p64, x64, Y64, "kron")
+    g32 = lml(p, x, Y, "kron")
+    with _PlainRoutes():
+        wit = lml(p, x, Y, "kron")
+    ms = 1e3 * min(_counted(torch, lambda: lml(p, x, Y, "kron"))[1]
+                   for _ in range(3))
+    print(f"(d) kron ICM N={N_ICM} T={T_ICM} (B's eigenvalue 0.3 twice): "
+          f"{ms:.2f} ms per value + gradient (through eigh's VJP: 100.82 "
+          f"ms on an H100 80GB HBM3 at 700 W)", flush=True)
+    err = _hold_model("(d) kron ICM, repeated eigenvalue", names, g32, dense64,
+                      wit, [VALUE_REL] + [GRAD_REL] * (len(names) - 1),
+                      own64=kron64)
+    for nm, a, b in zip(names, kron64, dense64):
+        e = _rel(a, b)
+        print(f"(d) kron float64 {nm}: {e:.3e} of the dense float64's norm "
+              f"(limit 1e-6)", flush=True)
+        check(e <= 1e-6, f"(d) kron float64 {nm} misses the dense one")
+    check(len(NOT_HELD) == before, f"(d) not held: {NOT_HELD[before:]}")
+    return {"kron_ms": ms, "kron_err": err}
+
+
+def phase_statespace(torch, gt):
+    """Phase 8: classification and the state-space models at full width,
+    (a)-(d), each part's seconds."""
+    out, secs = {}, {}
+    t_all = time.perf_counter()
+    for name, fn in (("classify", lambda: _classify_phase(torch, gt)),
+                     ("temperature_dlm", lambda: _temperature_case(torch, gt)),
+                     ("dlmgp", lambda: _dlmgp_phase(torch, gt)),
+                     ("repaired_gradients",
+                      lambda: _repaired_gradients(torch, gt))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = secs
+    print(f"phase 8 seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
+          f", total {time.perf_counter() - t_all:.1f}", flush=True)
+    return out
+
 
 
 
@@ -4667,6 +5326,17 @@ def main() -> int:
         print("summary: " + json.dumps(summary), flush=True)
         print(f"total {time.perf_counter() - t0:.1f} s (models only)", flush=True)
         return 0
+    if "--newton-lockstep" in sys.argv[1:]:
+        phase_newton_lockstep(torch, gt)
+        print(f"total {time.perf_counter() - t0:.1f} s (Newton lockstep)",
+              flush=True)
+        return 0
+    if "--classify-dlm-only" in sys.argv[1:]:
+        summary = {"statespace": phase_statespace(torch, gt)}
+        print("summary: " + json.dumps(summary), flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s (classify and DLMs "
+              f"only)", flush=True)
+        return 0
     if "--bench-only" in sys.argv[1:]:
         records = {name: {} for name in _counters()}
         summary = phase_bench(torch, gt, records)
@@ -4694,6 +5364,7 @@ def main() -> int:
     summary["workflows"] = phase_workflows(torch, gt, case,
                                            summary["sampler"])
     summary["models"] = phase_models(torch, gt)
+    summary["statespace"] = phase_statespace(torch, gt)
     print("summary: " + json.dumps(summary), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     order = ("gram", "trmm", "syrk_lower", "chol_inv_tile", "chol_inv_tile_off",

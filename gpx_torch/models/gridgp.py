@@ -11,8 +11,9 @@ per-axis eigendecompositions:
 O(sum n_i^3) instead of O((prod n_i)^3); after the per-axis ``eigh`` every
 step is a chain of per-axis contractions. On the card, in float32, the
 per-axis Grams and the cross blocks come from the CUDA Gram kernel; the
-``eigh``s are ``torch.linalg``'s with TF32 off, and the gradient runs
-through their VJP, which divides by eigenvalue gaps.
+``eigh``s are ``torch.linalg``'s with TF32 off. The logML's gradient holds
+the eigenbases constant (no ``eigh`` VJP, which divides by eigenvalue
+gaps): it is defined at repeated eigenvalues.
 
 Incomplete grids: ``fit(mask=...)`` solves for the posterior mean by CG on
 the mask-embedded Kronecker matvec (exact under masking; no ``eigh``).
@@ -33,7 +34,8 @@ from gpx_torch._device import as_tensor, full_fp32
 from gpx_torch._module import FieldModule
 from gpx_torch.models import gp
 from gpx_torch.models.gp_iterative import _no_mesh, cg_solve
-from gpx_torch.models.multioutput import _on, _staggered_w
+from gpx_torch.models.multioutput import (_held_basis_surrogate, _on,
+                                          _staggered_w, _with_gradient)
 from gpx_torch.ops import chol
 from gpx_torch.ops.distance import as_locations
 from gpx_torch.params import leaves
@@ -113,9 +115,8 @@ class CoregionAxis(FieldModule):
 
 def coregion_axis(n_outputs: int, rank: int = 1, *, w=None, kappa=0.2,
                   device=None, dtype=None) -> CoregionAxis:
-    """Constructor with ``multioutput.icm``'s staggered default ``W`` (an
-    exactly symmetric one puts the ``eigh`` VJP at a repeated
-    eigenvalue), on ``device`` (default: the card)."""
+    """Constructor with ``multioutput.icm``'s staggered default ``W``, on
+    ``device`` (default: the card)."""
     like = as_tensor(0.0, device=device, dtype=dtype)
     w = _staggered_w(n_outputs, rank, like) if w is None else _on(like, w)
     kappa = _on(like, kappa).broadcast_to((n_outputs,)).clone()
@@ -173,14 +174,18 @@ def _rotate(t, mats, mesh=None, mesh_axis: str = "data"):
     return t
 
 
-def _eigs(p: GridParams, axes, nugget):
-    """Per-axis ``eigh`` (TF32 off) and the full eigenvalue tensor ``S =
-    prod L_i + noise + nugget``; the small negative float32 eigenvalues are
-    clamped at 0."""
+def _grams(p: GridParams, axes):
+    return [k.gram(a) for k, a in zip(p.kernels, axes)]
+
+
+def _eigs(p: GridParams, grams, nugget):
+    """Per-axis ``eigh`` (TF32 off) of the per-axis Grams and the full
+    eigenvalue tensor ``S = prod L_i + noise + nugget``; the small negative
+    float32 eigenvalues are clamped at 0."""
     full_fp32()
     qs, lams = [], []
-    for k, a in zip(p.kernels, axes):
-        lam, q = chol.eigh(k.gram(a))
+    for g in grams:
+        lam, q = chol.eigh(g)
         qs.append(q)
         lams.append(torch.clamp_min(lam, 0.0))
     s = reduce(lambda acc, lam: acc[..., None] * lam, lams[1:], lams[0])
@@ -205,14 +210,27 @@ def log_marginal_likelihood(p: GridParams, axes, Y, *,
     """Exact ``log N(vec Y | 0, prod_i K_i + (noise + nugget) I)`` through
     the Kronecker eigen-identity; ``Y`` in grid shape or flat (C order)."""
     _no_mesh(mesh)
+    full_fp32()
     axes = _check_axes(p, axes)
     shape = tuple(a.shape[0] for a in axes)
     Y = _check_y(Y, shape, axes[0].device)
-    qs, _, s = _eigs(p, axes, nugget)
-    yt = _rotate(Y, [q.T for q in qs])
-    quad = torch.sum(yt * yt / s)
-    logdet = torch.sum(torch.log(s))
-    return -0.5 * (quad + logdet + math.prod(shape) * math.log(2.0 * math.pi))
+    grams = _grams(p, axes)
+    with torch.no_grad():
+        qs, lams, s = _eigs(p, grams, nugget)
+        yt = _rotate(Y, [q.T for q in qs])
+        quad = torch.sum(yt * yt / s)
+        logdet = torch.sum(torch.log(s))
+        value = -0.5 * (quad + logdet
+                        + math.prod(shape) * math.log(2.0 * math.pi))
+    live = (*grams, p.noise, Y)
+    if not (torch.is_grad_enabled() and any(v.requires_grad for v in live)):
+        return value
+    # the gradient with the eigenbases held constant, as the Kronecker
+    # ICM's: a = K^-1 vec Y in grid shape
+    with torch.no_grad():
+        alpha = _rotate(yt / s, qs)
+    return _with_gradient(value, _held_basis_surrogate(
+        grams, qs, lams, s, alpha, p.noise, Y))
 
 
 def draw(key, p: GridParams, axes, *, shape=(), include_noise: bool = True,
@@ -222,7 +240,7 @@ def draw(key, p: GridParams, axes, *, shape=(), include_noise: bool = True,
     then the noise are drawn from the ``torch.Generator`` ``key``."""
     axes = _check_axes(p, axes)
     gshape = tuple(a.shape[0] for a in axes)
-    qs, lams, _ = _eigs(p, axes, nugget=0.0)
+    qs, lams, _ = _eigs(p, _grams(p, axes), nugget=0.0)
     roots = [q * torch.sqrt(lam + nugget)[None, :] for q, lam in zip(qs, lams)]
     like = roots[0]
 
@@ -290,7 +308,7 @@ def fit(p: GridParams, axes, Y, xs, *, nugget: float = gp.PREDICT_NUGGET,
         mean = _mean_chain(cross, alpha)
         return gp.PosteriorSummary(x=xs, mean=mean,
                                    variance=mean.new_zeros((0,)))
-    qs, _, s = _eigs(p, axes, nugget)
+    qs, _, s = _eigs(p, _grams(p, axes), nugget)
     yt = _rotate(Y, [q.T for q in qs])
     alpha = _rotate(yt / s, qs)                        # K^-1 vec Y, gridded
     mean = _mean_chain(cross, alpha)
@@ -321,7 +339,7 @@ def posterior_draw(key, p: GridParams, axes, Y, xs, *,
     Y = _check_y(Y, gshape, axes[0].device)
     xs, xs_blocks, cross = _cross(p, axes, xs)
     m = xs.shape[0]
-    qs, _, s = _eigs(p, axes, nugget)
+    qs, _, s = _eigs(p, _grams(p, axes), nugget)
     alpha = _rotate(_rotate(Y, [q.T for q in qs]) / s, qs)
     mean = _mean_chain(cross, alpha)                          # (M,)
     pair = [torch.einsum("mi,ri->mri", pm, pm).reshape(m * m, -1)
@@ -345,8 +363,7 @@ def kron_matvec(p: GridParams, axes, *, nugget: float = 0.0):
     tensors (trailing axes ride along): O(N sum n_i) per apply, no
     eigendecomposition."""
     full_fp32()
-    axes = _check_axes(p, axes)
-    grams = [k.gram(a) for k, a in zip(p.kernels, axes)]
+    grams = _grams(p, _check_axes(p, axes))
     d = p.noise + nugget
 
     def mv(V):

@@ -65,9 +65,8 @@ class IcmParams(FieldModule):
 
 def _staggered_w(n_outputs: int, rank: int, like, offset: float = 0.0):
     """The JAX package's default loadings ``(1 + 0.05 t + offset) /
-    sqrt(rank)``, (T, rank), on ``like``'s device and in its type. An
-    exactly symmetric ``W`` gives ``B`` a repeated eigenvalue, where the
-    ``eigh`` VJP of the Kronecker path is NaN."""
+    sqrt(rank)``, (T, rank), on ``like``'s device and in its type: an
+    exactly symmetric ``W`` would give ``B`` a repeated eigenvalue."""
     ramp = 1.0 + 0.05 * torch.arange(n_outputs, dtype=like.dtype,
                                      device=like.device)[:, None] + offset
     return ramp * torch.full((n_outputs, rank), 1.0 / math.sqrt(rank),
@@ -185,20 +184,83 @@ def gram_full(p, x, *, nugget: float = 0.0) -> torch.Tensor:
     return full + torch.diag(d)
 
 
-def _kron_eig(p: IcmParams, x, nugget):
-    """Eigen-split of ``B (x) K + (s2 + nugget) I``: ``(Qk, lam_k, Qb, lam_b,
-    S)`` with ``S[n, a] = lam_k[n] lam_b[a] + s2 + nugget``, the operator's
-    spectrum as (N, T). The small negative float32 eigenvalues of the PSD
-    factors are clamped at 0; the noise keeps ``S`` positive."""
+def _kron_eig(p: IcmParams, kxx, b, nugget):
+    """Eigen-split of ``B (x) K + (s2 + nugget) I`` from the Gram ``kxx``
+    and ``b = B``: ``(Qk, lam_k, Qb, lam_b, S)`` with ``S[n, a] = lam_k[n]
+    lam_b[a] + s2 + nugget``, the operator's spectrum as (N, T). The small
+    negative float32 eigenvalues of the PSD factors are clamped at 0; the
+    noise keeps ``S`` positive."""
     full_fp32()
-    kxx = p.kernel.gram(x)
-    b = coregion_matrix(p)
     lam_k, qk = chol.eigh(kxx)
     lam_b, qb = chol.eigh(b)
     lam_k = torch.clamp_min(lam_k, 0.0)
     lam_b = torch.clamp_min(lam_b, 0.0)
     s = lam_k[:, None] * lam_b[None, :] + p.noise + nugget
     return qk, lam_k, qb, lam_b, s
+
+
+def _kron_logml(p: IcmParams, x, Y, nugget):
+    """The Kronecker logML, whose gradient never differentiates ``eigh``:
+    the value from the eigenbases of ``Kx`` and ``B``, the gradient from
+    :func:`_held_basis_surrogate` on the axes ``(Kx, B)`` (``vec Y`` in C
+    order is ``Kx (x) B``'s), which autograd carries to the kernel's
+    leaves, ``W`` and ``kappa``."""
+    n, t = Y.shape
+    full_fp32()
+    kxx, b = p.kernel.gram(x), coregion_matrix(p)
+    with torch.no_grad():
+        qk, lam_k, qb, lam_b, s = _kron_eig(p, kxx, b, nugget)
+        w = (qk.T @ Y) @ qb
+        quad = torch.sum(w * w / s)
+        logdet = torch.sum(torch.log(s))
+        value = -0.5 * (quad + logdet + n * t * math.log(2.0 * math.pi))
+    live = (kxx, b, p.noise, Y)
+    if not (torch.is_grad_enabled() and any(v.requires_grad for v in live)):
+        return value
+    with torch.no_grad():
+        alpha = (qk @ (w / s)) @ qb.T                # mat(K^-1 vec Y), (N, T)
+    return _with_gradient(value, _held_basis_surrogate(
+        [kxx, b], [qk, qb], [lam_k, lam_b], s, alpha, p.noise, Y))
+
+
+def _held_basis_surrogate(grams, qs, lams, s, alpha, noise, Y):
+    """A surrogate whose gradient is that of ``log N(vec Y | 0, K)``, ``K =
+    (x)_d K_d + s2 I`` with ``K_d = Q_d diag(lams[d]) Q_d^T``, with the
+    eigenbases held constant; ``s`` is K's spectrum and ``alpha`` ``K^-1
+    vec Y``, both in grid shape. The derivative is ``1/2 a^T dK a - 1/2
+    tr(K^-1 dK)``: on axis d the trace is ``tr(W_d dK_d)`` with ``W_d =
+    Q_d diag(sum over the other axes' indices of prod_{e != d} lam_e / S)
+    Q_d^T``, the quadratic form's weight is ``alpha`` contracted with
+    itself over the other axes through their Grams (``A B A^T`` and ``A^T
+    Kx A`` for two axes, ``A = mat(alpha)``), and the noise's is ``sum 1 /
+    S - |alpha|^2``. The weights are detached. Inside a degenerate
+    eigenspace they are equal, so the gradient does not depend on the
+    basis ``eigh`` picks there, and no eigenvalue gap divides anything
+    (``eigh``'s VJP does both)."""
+    nd = len(grams)
+    with torch.no_grad():
+        inv_s = 1.0 / s
+        weights = []
+        for d in range(nd):
+            others = [e for e in range(nd) if e != d]
+            v, m = inv_s, alpha
+            for e in others:
+                v = v * lams[e].reshape([-1 if i == e else 1
+                                         for i in range(nd)])
+                m = torch.movedim(torch.tensordot(grams[e], m,
+                                                  dims=([1], [e])), 0, e)
+            v = torch.sum(v, dim=others) if others else v
+            a_d = torch.tensordot(alpha, m, dims=(others, others))
+            weights.append((qs[d] * v[None, :]) @ qs[d].T - a_d)
+        g_s = torch.sum(inv_s) - torch.sum(alpha * alpha)
+    return -0.5 * (sum(torch.sum(w * g) for w, g in zip(weights, grams))
+                   + g_s * noise) - torch.sum(alpha * Y)
+
+
+def _with_gradient(value, surrogate):
+    """``value``, bitwise, with the gradient of ``surrogate`` (a function
+    of the live inputs whose weights are detached)."""
+    return value + (surrogate - surrogate.detach())
 
 
 def _obs_index(mask, n, t):
@@ -243,19 +305,15 @@ def log_marginal_likelihood(p, x, Y, *, nugget: float = gp.LOGML_NUGGET,
 
     ``method``: ``"kron"`` (shared noise; two eigendecompositions, nothing
     NT-sized), ``"dense"`` (the NT Cholesky; any noise) or ``"auto"``. The
-    Kronecker path differentiates through ``eigh``, whose VJP divides by
-    eigenvalue gaps: where a fit meets a repeated eigenvalue (of B or K)
-    take ``method="dense"``. ``mask`` (N, T) boolean, True = observed,
+    Kronecker path's gradient holds the eigenbases constant
+    (:func:`_kron_logml`): it is defined at repeated eigenvalues of B or
+    K, where ``eigh``'s VJP is not. ``mask`` (N, T) boolean, True = observed,
     selects the observed sub-block (dense path); masked-out entries of
     ``Y`` may hold NaN."""
     x, Y = _check_xy(x, Y, p)
     n, t = Y.shape
     if _route(p, method, mask) == "kron":
-        qk, _, qb, _, s = _kron_eig(p, x, nugget)
-        w = (qk.T @ Y) @ qb
-        quad = torch.sum(w * w / s)
-        logdet = torch.sum(torch.log(s))
-        return -0.5 * (quad + logdet + n * t * math.log(2.0 * math.pi))
+        return _kron_logml(p, x, Y, nugget)
     kfull = gram_full(p, x, nugget=nugget)
     v = Y.T.reshape(-1)
     if mask is not None:
@@ -379,7 +437,7 @@ def fit(p, x, Y, xs, *, nugget: float = gp.PREDICT_NUGGET,
     if route == "kron":
         b = coregion_matrix(p)
         kxs = p.kernel.gram(x, xs)                  # (N, M)
-        qk, _, qb, _, s = _kron_eig(p, x, nugget)
+        qk, _, qb, _, s = _kron_eig(p, p.kernel.gram(x), b, nugget)
         w = (qk.T @ Y) @ qb
         alpha = (qk @ (w / s)) @ qb.T               # mat(K^-1 vec Y), (N, T)
         mean = (kxs.T @ alpha) @ b                  # (M, T)
@@ -488,7 +546,8 @@ def sample_nuts(key, x, Y, template, log_prior: Callable, n_samples: int, *,
                 nugget: float = gp.LOGML_NUGGET, init_jitter: float = 0.1,
                 method: str = "auto", mask=None):
     """NUTS over every multi-output hyperparameter; the gradient is
-    autograd's through the kron (``eigh``) or dense (Cholesky) logML."""
+    autograd's through the kron (eigenbases held constant) or dense
+    (Cholesky) logML."""
     from gpx_torch.infer import sample_nuts_log_density
 
     x, Y = _check_xy(x, Y, template)

@@ -33,14 +33,21 @@ def check_xy(x, y, what: str = "y"):
     return x, y
 
 
+# The most entries (rows x columns x D) of one block of broadcast
+# differences: wide inputs (classification at D = 784) take row blocks, so
+# that the difference tensor stays near 1 GiB in float64
+_BLOCK_ENTRIES = 1 << 27
+
+
 def sq_distances(x1, x2=None, *, exact: bool = False):
     """Pairwise squared Euclidean distances.
 
     The points are centred first (distances are translation-invariant, and
     centring keeps coordinate rounding out of r2). For ``D <= 8`` or
     ``exact=True`` the broadcast-difference form is used, which keeps
-    coincident points at exactly 0 (White's ``r2 == 0``); otherwise the
-    norms-plus-dot identity. The result is clamped at 0 and, in the
+    coincident points at exactly 0 (White's ``r2 == 0``), in blocks of
+    rows where the differences would exceed ``_BLOCK_ENTRIES``; otherwise
+    the norms-plus-dot identity. The result is clamped at 0 and, in the
     symmetric case, its diagonal is exactly 0.
     """
     x1 = as_locations(x1)
@@ -50,8 +57,9 @@ def sq_distances(x1, x2=None, *, exact: bool = False):
     x1 = x1 - center
     x2 = x1 if symmetric else x2 - center
     if exact or x1.shape[-1] <= 8:
-        diff = x1[:, None, :] - x2[None, :, :]
-        r2 = torch.sum(diff * diff, dim=-1)
+        rows = max(1, _BLOCK_ENTRIES // max(x2.shape[0] * x2.shape[1], 1))
+        r2 = torch.cat([_broadcast_r2(x1[i:i + rows], x2)
+                        for i in range(0, x1.shape[0], rows)])
     else:
         n1 = torch.sum(x1 * x1, dim=-1)
         n2 = n1 if symmetric else torch.sum(x2 * x2, dim=-1)
@@ -61,6 +69,11 @@ def sq_distances(x1, x2=None, *, exact: bool = False):
         eye = torch.eye(r2.shape[0], dtype=torch.bool, device=r2.device)
         r2 = torch.where(eye, torch.zeros_like(r2), r2)
     return r2
+
+
+def _broadcast_r2(x1, x2):
+    diff = x1[:, None, :] - x2[None, :, :]
+    return torch.sum(diff * diff, dim=-1)
 
 
 def distances(x1, x2=None):

@@ -133,7 +133,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    likelihood, the filter with V = Kxx, ``simulate`` and joint Gibbs
    sweeps with their Gram launches; (d) the kron ICM's and the grid's
    float32 gradients, which eigh's VJP made NaN, held against float64;
-9. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+9. the user-facing layer and the eight examples (``phase_examples``):
+   (a) the native CSV library (it must load; its bytes against the
+   Python writer's on a (10,000 x 6) float64 chain, read back bitwise,
+   ``write_chains_csv`` from the card, both writers' times for 10^6
+   values); (b) MH chains on simulated_gp.py's data, 2k draws against k
+   draws, a checkpoint and k more, bitwise; (c) every example command on
+   the card through its ``main`` with ``--no-plots`` at gpx's data sizes
+   (large_n at 16,384, 32,768 and 16,384), cut in depth (EX_*): each
+   command's ms, launches and outputs (on the card, finite), large_n
+   dense's launches against phase 3's and its value and gradient against
+   float64 at phase 3's limits, large_n iterative's value at phase 4's,
+   the fits of simulated_gp, temperature_kriging and the ICM forecast at
+   the optimum, the DLM forecast and held-out Student-t intervals at
+   fixed variances against float64 (a float32 output that misses on both
+   float32 routes prints "not held"), accept rates in range, and
+   ``posterior-predictive`` reading the chain ``parameters`` wrote; (d)
+   ``utils.profiling.profile_gp_stages`` at the bench case (its table,
+   the chol_inv stage's fused launches) and a ``device_trace`` of two
+   logML evaluations (a warm-up, then one) naming the port's kernels;
+10. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
     python3 chip_smoke.py --no-iterative
 
@@ -177,6 +196,10 @@ runs phase 1 and phase 7 only, with no ``kernels`` or ``ok`` line.
     python3 chip_smoke.py --classify-dlm-only
 
 runs phase 1 and phase 8 only, with no ``kernels`` or ``ok`` line.
+
+    python3 chip_smoke.py --examples-only
+
+runs phase 1 and phase 9 only, with no ``kernels`` or ``ok`` line.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -4648,6 +4671,7 @@ def phase_models(torch, gt):
         torch.cuda.empty_cache()
     out["seconds"] = secs
     out["not_held"] = list(NOT_HELD)
+    out["second_limit"] = list(SECOND_LIMIT)
     print(f"phase 7: {len(NOT_HELD)} outputs not held (float32 algorithm): "
           f"{json.dumps(NOT_HELD)}", flush=True)
     # the kron and grid gradients hold the eigenbases constant: no eigh VJP
@@ -5292,7 +5316,538 @@ def phase_statespace(torch, gt):
           f", total {time.perf_counter() - t_all:.1f}", flush=True)
     return out
 
+# -- phase 9: the user-facing layer and the examples --------------------------
 
+# The examples' data sizes are gpx's accelerator ones (large_n at 16,384,
+# 32,768 and 16,384); their depth is cut from the defaults so that phase 9
+# fits its time (on an H100 80GB HBM3 at 700 W, a sweep of the temperature
+# DLM takes 4.4-4.7 s and of dlm_gp's DLM-GP ~1 s, phase 8); widths are
+# never cut
+EX_N = {"dense": 16384, "iterative": 32768, "svgp": 16384}
+EX_MH = 300                 # simulated_gp parameters (1000)
+EX_EHMC = (20, 20, 20)      # simulated_gp hmc: iterations, --warmup, --k
+                            # (1000, 200, 200)
+EX_GIBBS = 200              # temperature (1000)
+EX_KRIG = 500               # temperature_kriging (1500)
+EX_ICM_MH = 100             # temperature_icm's MH (500)
+EX_DLM = 3                  # temperature_dlm's Gibbs sweeps (500)
+EX_DLMGP = 20               # dlm_gp's Gibbs sweeps (500)
+# a random-walk chain's accept rate at cut depth, burn-in included: a
+# stuck chain or one that accepts every move fails (MH-within-Gibbs's
+# small kernel steps accept ~0.9-0.96)
+ACCEPT = (0.05, 0.99)
+CSV_SHAPE = (10000, 6)      # phase 9 (a)'s chain
+CSV_VALUES = 10 ** 6        # the write timing's values
+RESUME_K = 100              # (b): 2k draws against k + checkpoint + k
+PHASE9_DIR = "build/phase9"  # under the checkout's root (git-ignored)
+
+
+def _phase9_dir(name):
+    import pathlib
+
+    d = pathlib.Path(__file__).resolve().parent / PHASE9_DIR / name
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def _bitwise64(a, b) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and bool((a.view(np.int64) == b.view(np.int64)).all())
+
+
+def _csv_phase(torch):
+    """(a) The native CSV: it must load; the native and Python writers'
+    bytes alike on a (10,000 x 6) float64 chain and its read back bitwise
+    on both readers; ``write_chains_csv`` of a (4, n, d) tensor on the card;
+    both writers' times for 10^6 values (host)."""
+    from gpx_torch import io
+    from gpx_torch.native import build, load_fastcsv
+
+    lib = load_fastcsv()
+    check(lib is not None, "(a) the native fastcsv library did not load")
+    print(f"(a) fastcsv loaded from {build.library_path()}", flush=True)
+    d = _phase9_dir("csv")
+    rng = np.random.default_rng(0)
+    flat = rng.normal(size=CSV_SHAPE) * 10.0 ** rng.integers(-30, 30, CSV_SHAPE)
+    names = [f"p{i}" for i in range(CSV_SHAPE[1])]
+    io.write_chain_csv(d / "native.csv", flat, names)
+    io._write_csv_py(d / "python.csv", flat, names)
+    same = (d / "native.csv").read_bytes() == (d / "python.csv").read_bytes()
+    back_n, got_names = io.read_chain_csv(d / "native.csv")
+    back_p = io._read_csv_py(d / "native.csv")
+    bitwise = _bitwise64(back_n, flat) and _bitwise64(back_p, flat)
+    print(f"(a) {CSV_SHAPE} float64 chain: native and Python bytes alike "
+          f"{same}; read back bitwise (native, Python readers) {bitwise}",
+          flush=True)
+    check(same, "(a) the native and Python writers' bytes differ")
+    check(bitwise and got_names == names, "(a) the chain does not read back")
+    chains = torch.randn((4, 2500, 6), dtype=torch.float64, device=DEV)
+    paths = io.write_chains_csv(d / "chain.csv", chains, names)
+    check([p.name for p in paths] == [f"chain_{i}.csv" for i in range(4)],
+          "(a) write_chains_csv's file names")
+    check(all(_bitwise64(io.read_chain_csv(p)[0], c.cpu().numpy())
+              for p, c in zip(paths, chains)), "(a) a chain file differs")
+    big = rng.normal(size=(CSV_VALUES // 10, 10))
+    ms = {}
+    for name, write in (("native", io.write_chain_csv),
+                        ("python", io._write_csv_py)):
+        t0 = time.perf_counter()
+        write(d / f"big_{name}.csv", big, names[:1] * 10)
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+    print(f"(a) writing 10^6 values (host): native {ms['native']:.1f} ms, "
+          f"Python {ms['python']:.1f} ms ({ms['python'] / ms['native']:.1f}x)",
+          flush=True)
+    return {"write_ms": ms}
+
+
+def _resume_phase(torch, gt):
+    """(b) MH chains on simulated_gp's data: 2k draws against k draws, a
+    checkpoint of the final state and the generator, and k more draws from
+    the restored ones, bitwise."""
+    from gpx_torch import io
+    from gpx_torch.examples import simulated_gp
+    from gpx_torch.infer import base, mh
+    from gpx_torch.models import gp
+
+    x, y = simulated_gp.simulate(torch.Generator(device=DEV).manual_seed(0))
+    xobs, yobs = x[::15], y[::15]
+    prior = simulated_gp.log_prior_fn(DEV)
+    logpost, flat0, _ = mh.make_unconstrained_log_posterior(
+        lambda p: prior(p) + gp.log_marginal_likelihood(p, xobs, yobs),
+        simulated_gp.template(DEV))
+    step = mh.kernel(logpost, mh.gaussian_random_walk(0.12))
+    init = mh.init(flat0, logpost)
+    k = RESUME_K
+    whole = base.sample(step, init, torch.Generator(device=DEV).manual_seed(1),
+                        2 * k)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    first = base.sample(step, init, gen, k)
+    path = io.save_checkpoint(_phase9_dir("resume") / "mh.pt",
+                              {"state": first.final_state, "generator": gen})
+    saved = (io.load_checkpoint(path) if DEV == "cuda"
+             else io.load_checkpoint(path, device=DEV))
+    on_card = all(t.device.type == torch.device(DEV).type
+                  for t in saved["state"]) and saved["generator"].device.type == torch.device(DEV).type
+    rest = base.sample(step, saved["state"], saved["generator"], k)
+    joined = [torch.cat([a, b]) for a, b in zip(first.samples, rest.samples)]
+    same = all(torch.equal(a, b) for a, b in zip(whole.samples, joined)) and all(
+        torch.equal(a, b) for a, b in zip(whole.final_state, rest.final_state))
+    acc = int(whole.final_state.accepted) / (2 * k)
+    print(f"(b) MH resume on the card: {2 * k} draws against {k} + "
+          f"checkpoint + {k}, bitwise {same}; restored on the card {on_card}; "
+          f"accept {acc:.3f}", flush=True)
+    check(on_card, "(b) the checkpoint did not restore onto the card")
+    check(same, "(b) the resumed chain differs from the unbroken one")
+    return {"accept": acc}
+
+
+def _tensors(tree):
+    out, stack = [], [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif hasattr(node, "_fields") and hasattr(node, "buffers"):
+            stack.extend(node.buffers())
+        elif hasattr(node, "device") and hasattr(node, "is_floating_point"):
+            out.append(node)
+    return out
+
+
+EX_MS: dict = {}
+SECOND_LIMIT: list = []     # outputs past their base limit on both float32
+                            # routes, held within twice the witness's error
+
+
+def _example(torch, name, argv):
+    """``python -m gpx_torch.examples.<name> *argv --no-plots`` through its
+    ``main``, on the card by default: every kernel's launches counted,
+    its ms, and every output tensor on the card and finite."""
+    import importlib
+
+    mod = importlib.import_module(f"gpx_torch.examples.{name}")
+    args = [*argv, "--no-plots"] + ([] if DEV == "cuda" else ["--device", DEV])
+    out, wall, launches = _counted(torch, lambda: mod.main(args))
+    ts = _tensors(out)
+    where = {t.device.type for t in ts}
+    finite = all(bool(t.isfinite().all()) for t in ts if t.is_floating_point())
+    label = f"{name} {' '.join(argv)}".strip()
+    EX_MS[label] = 1e3 * wall
+    print(f"[{label}] {1e3 * wall:.1f} ms; {len(ts)} output tensors on "
+          f"{sorted(where)}, finite {finite}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    check(where == {torch.device(DEV).type}, f"{label}: an output is not on "
+          f"the card")
+    check(finite, f"{label}: an output is not finite")
+    return out, launches
+
+
+def _hold_scalars(label, names, got, want, limits, witness):
+    """Scalars against float64 within ``limits`` (absolute), or, where the
+    float32 witness route misses a limit too, within twice its error (the
+    second limit; such outputs are listed in SECOND_LIMIT); an output
+    outside its limit whose witness is off by more than WITNESS_CAP of the
+    value is not held (NOT_HELD)."""
+    for nm, g, w, lim, f in zip(names, got, want, limits, witness):
+        e, ew = abs(g - w), abs(f - w)
+        if e > lim and ew > WITNESS_CAP * abs(w):
+            print(f"{label} {nm}: not held (float32 algorithm): f32 {g:.8e} "
+                  f"f64 {w:.8e} err {e:.3e}; the float32 witness misses by "
+                  f"{ew:.3e}", flush=True)
+            NOT_HELD.append(f"{label} {nm}")
+            continue
+        limit = max(lim, 2.0 * ew)
+        print(f"{label} {nm}: f32 {g:.8e} f64 {w:.8e} err {e:.3e} (limit "
+              f"{limit:.3e}; base {lim:.3e}, float32 witness {ew:.3e})",
+              flush=True)
+        check(math.isfinite(g) and e <= limit, f"{label} {nm}: outside its "
+              f"limit")
+        if e > lim:
+            SECOND_LIMIT.append(f"{label} {nm}")
+
+
+def _ex_large_n(torch, gt):
+    """large_n dense (phase 3's launches and limits), iterative (phase 4's
+    value limits, both matvec kernels launched) and svgp."""
+    from gpx_torch.models import gp, gp_iterative as gi
+
+    n = EX_N["dense"]
+    out, launches = _example(torch, "large_n", ["dense", str(n)])
+    leaves = -(-n // 128)
+    logml = {"gram": 1, "trmm": 3 * (leaves - 1), "syrk_lower": leaves - 1,
+             "chol_inv_tile": leaves, "chol_inv_tile_off": leaves,
+             "logml_kernel_grads": 1}
+    fit = {"gram": 2, "trmm": 3 * (leaves - 1) + 1, "syrk_lower": leaves - 1,
+           "chol_inv_tile": leaves, "chol_inv_tile_off": leaves,
+           "logml_kernel_grads": 0}
+    want = {k: logml[k] + fit[k] for k in logml}
+    got = {k: launches[k] for k in logml}
+    print(f"large_n dense launches {json.dumps(got)} = the logML's (phase "
+          f"3's) {json.dumps(logml)} + fit's {json.dumps(fit)}", flush=True)
+    check(got == want and launches["logml_probe_grads"] == 0
+          and launches["gram_matvec"] == 0, "large_n dense: not phase 3's "
+          "fused route")
+    params, x, y = out["params"], out["x"], out["y"]
+    want64 = _f64_result(torch, gt, gp, params, x, y)
+    keep = gp.FUSED_MIN_N
+    gp.FUSED_MIN_N = n + 1
+    try:
+        witness = _flat_result(gt, *gp.logml_value_and_grad(params, x, y))
+    finally:
+        gp.FUSED_MIN_N = keep
+    got = _flat_result(gt, out["value"], out["grads"])
+    # phase 3's limits: value 1e-4 relative, h 0.5 absolute, sigma 1e-2
+    # and White 1e-5 relative
+    limits = [1e-4 * abs(want64[0]), 0.5, 1e-2 * abs(want64[2]),
+              1e-5 * abs(want64[3])]
+    _hold_scalars(f"large_n dense n={n}", ["value", "h", "sigma", "white"],
+                  got, want64, limits, witness)
+
+    n = EX_N["iterative"]
+    out, launches = _example(torch, "large_n", ["iterative", str(n)])
+    check(launches["gram_matvec"] > 0 and launches["cross_matvec"] > 0,
+          "large_n iterative: a matvec kernel was not launched")
+    params, x, y = out["params"], out["x"], out["y"]
+    pn, sn = _iter_noise(torch, gi, 0, n, ITER["n_probes"])
+    r64 = gi._logml_value_and_grad_iterative(
+        _to64(gt, params), x.double(), y.double(), probe_noise=pn.double(),
+        slq_noise=sn.double(), lanczos_iters=ITER["lanczos_iters"],
+        cg_tol=ITER["cg_tol"], precond_rank=ITER["precond_rank"])
+    lmat = torch.linalg.cholesky(_dense_gram64(
+        torch, _iter_kernel(gt, torch.float64), x.double(), gp.LOGML_NUGGET))
+    z = torch.linalg.solve_triangular(lmat, y.double()[:, None],
+                                      upper=False)[:, 0]
+    dense = (-0.5 * float(z @ z) - float(torch.log(lmat.diagonal()).sum())
+             - 0.5 * n * math.log(2.0 * math.pi))
+    del lmat
+    _hold_logml(f"large_n iterative n={n}", [float(out["value"])],
+                [float(r64.value)], [dense], names=("value",),
+                kinds=("value",))
+    print(f"large_n iterative: CG {out['cg_iters']} iterations, converged "
+          f"{out['cg_converged']}", flush=True)
+    check(bool(out["cg_converged"]), "large_n iterative: CG did not converge")
+    torch.cuda.empty_cache()
+
+    n = EX_N["svgp"]
+    out, launches = _example(torch, "large_n", ["svgp", str(n)])
+    tr = out["elbo_trace"]
+    first, last = float(tr[:5].mean()), float(tr[-5:].mean())
+    print(f"large_n svgp n={n}: {tr.shape[0]} steps, ELBO {first:.1f} -> "
+          f"{last:.1f}, noise {float(out['noise']):.4f} (truth 0.49)",
+          flush=True)
+    check(launches["gram"] > 0, "large_n svgp: the Gram kernel was not launched")
+    check(last > first, "large_n svgp: the ELBO did not improve")
+
+
+def _in_range(label, rates) -> None:
+    rates = [float(r) for r in np.atleast_1d(np.asarray(rates, dtype=float))]
+    print(f"{label} accept rates {[round(r, 3) for r in rates]} (range "
+          f"{ACCEPT})", flush=True)
+    check(all(ACCEPT[0] <= r <= ACCEPT[1] for r in rates),
+          f"{label}: an accept rate outside {ACCEPT}")
+
+
+def _ex_simulated_gp(torch, gt):
+    """simulated_gp's six commands; ``fit`` held against float64;
+    ``posterior-predictive`` reads the chain ``parameters`` wrote."""
+    from gpx_torch.examples import simulated_gp
+    from gpx_torch.models import gp
+
+    _example(torch, "simulated_gp", ["simulate"])
+    _example(torch, "simulated_gp", ["replicate"])
+    out, _ = _example(torch, "simulated_gp", ["fit"])
+    truth = simulated_gp.truth(DEV)
+
+    def fit(p, x, y, xs):
+        s = gp.fit(p, x, y, xs)
+        return [s.mean, s.variance]
+
+    _, f64, wit = _three(torch, gt, fit, truth, out["xobs"], out["yobs"],
+                         out["xs"])
+    _hold_model("simulated_gp fit", ["mean", "variance"],
+                [out["mean"], out["variance"]], f64, wit,
+                [MEAN_LIMIT, VAR_LIMIT])
+    par, _ = _example(torch, "simulated_gp", ["parameters", str(EX_MH)])
+    _in_range("simulated_gp parameters (MH)", par["accept_rate"].cpu())
+    means = par["flat"].mean((0, 1)).tolist()
+    print(f"simulated_gp parameters: posterior means {[round(m, 3) for m in means]}"
+          f" (truth 3.0, 5.5, 0.5; {EX_MH} draws, not held)", flush=True)
+    hmc, _ = _example(torch, "simulated_gp", ["hmc", str(EX_EHMC[0]),
+                                              "--warmup", str(EX_EHMC[1]),
+                                              "--k", str(EX_EHMC[2])])
+    rates = hmc["accept_rate"].cpu().numpy()
+    print(f"simulated_gp hmc (eHMC) accept rates {rates.tolist()}, posterior "
+          f"means {[round(m, 3) for m in hmc['flat'].mean((0, 1)).tolist()]}",
+          flush=True)
+    check(bool(((rates > 0) & (rates <= 1)).all()), "simulated_gp hmc: an "
+          "accept rate outside (0, 1]")
+    pp, _ = _example(torch, "simulated_gp", ["posterior-predictive", str(EX_MH)])
+    thin = max(1, EX_MH // 20)
+    want = par["flat"][0].double().cpu().numpy()[::thin]
+    same = _bitwise64(pp["flat"], want)
+    print(f"simulated_gp posterior-predictive: read gpmcmc_0.csv thinned by "
+          f"{thin}, {pp['flat'].shape[0]} rows, bitwise the parameters run's "
+          f"chain 0 {same}; curves {tuple(pp['curves'].shape)}", flush=True)
+    check(same, "posterior-predictive did not read the chain parameters wrote")
+    check(tuple(pp["curves"].shape) == (20, pp["xs"].shape[0]),
+          "posterior-predictive: curves' shape")
+
+
+def _ex_temperature(torch, gt):
+    """temperature (MH-within-Gibbs) and temperature_kriging (MH, CSV
+    resume, the grid's fit held against float64)."""
+    from gpx_torch.examples import temperature_kriging
+    from gpx_torch.models import gp
+
+    out, launches = _example(torch, "temperature", [str(EX_GIBBS)])
+    _in_range("temperature (MH-within-Gibbs)", out["accept_rate"].cpu())
+    print(f"temperature held-out sensor: observed {float(out['observed']):.3f}"
+          f", predicted {float(out['mean'][0]):.3f} +- "
+          f"{1.64 * float(out['variance'][0].sqrt()):.3f} (90%; not held)",
+          flush=True)
+    check(launches["gram"] > 0, "temperature: the Gram kernel was not launched")
+
+    out, _ = _example(torch, "temperature_kriging", [str(EX_KRIG)])
+    _in_range("temperature_kriging (MH)", out["accept_rate"].cpu())
+    fitted = temperature_kriging.fitted_params(out["post_mean"], DEV)
+
+    def fit(p, x, y, xs):
+        s = gp.fit(p, x, y, xs)
+        return [s.mean, s.variance]
+
+    _, f64, wit = _three(torch, gt, fit, fitted, out["locs"], out["resid"],
+                         out["grid"])
+    _hold_model("temperature_kriging grid fit", ["mean", "variance"],
+                [out["mean"], out["variance"]], f64, wit,
+                [MEAN_LIMIT, VAR_LIMIT])
+
+
+def _ex_icm(torch, gt):
+    """temperature_icm: optimize, the forecast at the optimum held against
+    float64, the MH run."""
+    from gpx_torch.models import multioutput as mo
+
+    out, launches = _example(torch, "temperature_icm", [str(EX_ICM_MH)])
+    print(f"temperature_icm: logML {float(out['values'][0]):.2f} -> "
+          f"{float(out['value']):.2f}, grad norm {float(out['grad_norm']):.3e}; "
+          f"coupling signs {out['signs'].tolist()} (sensor 7 negative: not "
+          f"held at cut depth)", flush=True)
+    _in_range("temperature_icm (MH)", out["accept_rate"].cpu())
+
+    def fit(p, x, y, xs):
+        s = mo.fit(p, x, y, xs)
+        return [s.mean, s.variance]
+
+    _, f64, wit = _three(torch, gt, fit, out["params"], out["x"], out["y"],
+                         out["xs"])
+    _hold_model("temperature_icm forecast at the optimum", ["mean", "variance"],
+                [out["forecast_mean"], out["forecast_variance"]], f64, wit,
+                [MEAN_LIMIT, VAR_LIMIT])
+
+
+def _ex_dlm(torch, gt):
+    """temperature_dlm (the Gibbs fit, the forecast and the held-out
+    Student-t intervals at fixed variances held against float64) and
+    dlm_gp."""
+    from gpx_torch.examples import temperature_dlm as td
+
+    out, _ = _example(torch, "temperature_dlm", [str(EX_DLM)])
+    g = out["gibbs"]
+    ok = bool((g.v > 0).all() and (g.w > 0).all())
+    print(f"temperature_dlm: {EX_DLM} sweeps; V hat "
+          f"{float(out['v_hat'].mean()):.4f} (truth 0.3), W hat "
+          f"{float(out['w_hat'].mean()):.5f} (truth 0.005); "
+          f"held-out coverage {out['heldout']['coverage']:.3f} (not held)",
+          flush=True)
+    check(ok, "temperature_dlm: a variance draw is not positive")
+    _in_range("temperature_dlm residual GP (MH)",
+              out["residual_accept_rate"].cpu())
+    ys = out["ys"].double()
+    m0, c0 = out["m0"].double(), out["c0"].double()
+    model64 = td.build_model(device=DEV, dtype=torch.float64)
+    _, means, covs = td.filter_and_forecast(
+        model64, ys, out["v_hat"].double(), out["w_hat"].double(), m0, c0,
+        out["forecast_means"].shape[0])
+    held = td.heldout_intervals(ys, m0, c0)
+    names = ["forecast means", "forecast covs", "held-out mean",
+             "held-out scale", "held-out lo", "held-out hi"]
+    got = [out["forecast_means"], out["forecast_covs"],
+           *(out["heldout"][k] for k in ("mean", "scale", "lo", "hi"))]
+    want = [means, covs, *(held[k] for k in ("mean", "scale", "lo", "hi"))]
+    _hold_lazy("temperature_dlm at fixed variances", names, got, want,
+               [DLM_REL] * len(names))
+
+    out, launches = _example(torch, "dlm_gp", [str(EX_DLMGP)])
+    r = out["result"]
+    print(f"dlm_gp: {EX_DLMGP} sweeps, kernel medians "
+          f"{[round(v, 3) for v in out['kernel_medians'].tolist()]} (truth 1.0, "
+          f"2.0, 0.2), W median {float(out['w_median']):.4f} (truth 0.05; not "
+          f"held)", flush=True)
+    _in_range("dlm_gp kernel MH", r.accept_rate.cpu())
+    check(launches["gram"] > 0, "dlm_gp: the Gram kernel was not launched")
+
+
+def _ex_mnist(torch, gt):
+    out, launches = _example(torch, "mnist_classify", [])
+    p = out["probs"]
+    sums = float((p.sum(-1) - 1.0).abs().max())
+    print(f"mnist_classify: {int(out['fit'].n_iters)} Newton steps, held-out "
+          f"accuracy {out['accuracy']:.3f} on the blob digits (not held); "
+          f"probabilities sum to 1 within {sums:.2e}", flush=True)
+    check(sums <= 1e-5, "mnist_classify: probabilities do not sum to 1")
+    check(launches["gram"] > 0, "mnist_classify: the Gram kernel was not "
+          "launched")
+
+
+def _trace_kernels(path):
+    """The CUDA kernel names of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+
+
+def _profile_phase(torch, gt):
+    """(d) profile_gp_stages at the bench case (its table; every stage > 0;
+    the chol_inv stage's fused launches) and a device_trace of two
+    logml_value_and_grad calls naming the port's kernels."""
+    import re
+
+    from gpx_torch.models import gp
+    from gpx_torch.utils.profiling import device_trace, profile_gp_stages
+
+    params, x_np, y_np = _bench_case(gt)
+    reps = 3
+    timer, _, launches = _counted(torch, lambda: profile_gp_stages(
+        params, x_np, y_np, reps=reps, device=DEV))
+    print(f"profile_gp_stages at the bench case (N = {N_BENCH}, float32):\n"
+          + timer.report(), flush=True)
+    names = list(timer.times)
+    check(names == ["gram", "cholesky", "triangular_solve", "tri_inverse",
+                    "chol_inv", "logml_value_and_grad"],
+          f"profile_gp_stages: stages {names}")
+    check(all(min(ts) > 0 for ts in timer.times.values()),
+          "profile_gp_stages: a stage took no time")
+    leaves = N_BENCH // 128
+    calls = reps + 1                  # one warm-up call of each stage
+    want = {"trmm": calls * 6 * (leaves - 1),
+            "syrk_lower": calls * 2 * (leaves - 1),
+            "chol_inv_tile_off": calls * 2 * leaves,
+            "logml_kernel_grads": calls,
+            "gram": 2 * calls}
+    got = {k: launches[k] for k in want}
+    print(f"profile_gp_stages launches {json.dumps(got)} (the chol_inv and "
+          f"logML stages' fused kernels, {calls} calls each)", flush=True)
+    check(got == want, "profile_gp_stages: the chol_inv stage is not the "
+          "fused route")
+    vg = [1e3 * t for t in timer.times["logml_value_and_grad"]]
+    print(f"profile_gp_stages logml_value_and_grad {statistics.median(vg):.2f} "
+          f"ms (median of {reps}, host clock synchronised) beside phase 3's "
+          f"ms/eval (CUDA events; for the record)", flush=True)
+
+    x = torch.as_tensor(x_np, device=DEV)
+    y = torch.as_tensor(y_np, device=DEV)
+    d = _phase9_dir("trace")
+    with device_trace(d, device=DEV):
+        # a warm-up call first: after phase 8's profiler run in the same
+        # process, a trace of one call missed that call's first kernels on
+        # the card (the Gram, the first fills)
+        gp.logml_value_and_grad(params, x, y)
+        gp.logml_value_and_grad(params, x, y)
+    kernels = _trace_kernels(d / "trace.json")
+    syrk = re.compile(r"product_kernel<.*, (\w+|\(bool\)\d), (\w+|\(bool\)\d), "
+                      r"(\w+|\(bool\)\d), \d+>")
+    flags = {m.group(2) for k in kernels for m in [syrk.search(k)] if m}
+    found = {"gram": any("gram_kernel" in k for k in kernels),
+             "trmm": bool(flags & {"false", "(bool)0"}),
+             "syrk": bool(flags & {"true", "(bool)1"}),
+             "leaf": any("chol_inv_tile_kernel" in k for k in kernels),
+             "logml_grad": any("logml_grad_kernel" in k
+                               and "probe" not in k for k in kernels)}
+    print(f"device_trace of logml_value_and_grad (a warm-up call, then "
+          f"one more): {len(kernels)} kernel "
+          f"names, the port's {json.dumps(found)}; names: "
+          f"{[k[:96] for k in kernels]}", flush=True)
+    check(all(found.values()), "device_trace: a fused kernel is missing from "
+          "the trace")
+    return {"stages_ms": {k: statistics.median([1e3 * t for t in ts])
+                          for k, ts in timer.times.items()},
+            "trace_kernels": len(kernels)}
+
+
+def phase_examples(torch, gt):
+    """Phase 9: the user-facing layer and the eight examples on the card,
+    (a)-(d), each part's seconds."""
+    out, secs = {}, {}
+    t_all = time.perf_counter()
+    NOT_HELD.clear()
+    SECOND_LIMIT.clear()
+    for name, fn in (("csv", lambda: _csv_phase(torch)),
+                     ("resume", lambda: _resume_phase(torch, gt)),
+                     ("large_n", lambda: _ex_large_n(torch, gt)),
+                     ("simulated_gp", lambda: _ex_simulated_gp(torch, gt)),
+                     ("temperature", lambda: _ex_temperature(torch, gt)),
+                     ("temperature_icm", lambda: _ex_icm(torch, gt)),
+                     ("dlm", lambda: _ex_dlm(torch, gt)),
+                     ("mnist_classify", lambda: _ex_mnist(torch, gt)),
+                     ("profile", lambda: _profile_phase(torch, gt))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["example_ms"] = dict(EX_MS)
+    out["not_held"] = list(NOT_HELD)
+    out["second_limit"] = list(SECOND_LIMIT)
+    out["seconds"] = secs
+    print(f"phase 9 ms per example command: "
+          f"{json.dumps({k: round(v, 1) for k, v in EX_MS.items()})}", flush=True)
+    print(f"phase 9 not held: {NOT_HELD}; past the base limit on both "
+          f"float32 routes, held by the second limit: {SECOND_LIMIT}",
+          flush=True)
+    print(f"phase 9 seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}"
+          f", total {time.perf_counter() - t_all:.1f}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -5331,6 +5886,12 @@ def main() -> int:
         print(f"total {time.perf_counter() - t0:.1f} s (Newton lockstep)",
               flush=True)
         return 0
+    if "--examples-only" in sys.argv[1:]:
+        summary = {"examples": phase_examples(torch, gt)}
+        print("summary: " + json.dumps(summary), flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s (examples only)",
+              flush=True)
+        return 0
     if "--classify-dlm-only" in sys.argv[1:]:
         summary = {"statespace": phase_statespace(torch, gt)}
         print("summary: " + json.dumps(summary), flush=True)
@@ -5365,6 +5926,7 @@ def main() -> int:
                                            summary["sampler"])
     summary["models"] = phase_models(torch, gt)
     summary["statespace"] = phase_statespace(torch, gt)
+    summary["examples"] = phase_examples(torch, gt)
     print("summary: " + json.dumps(summary), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     order = ("gram", "trmm", "syrk_lower", "chol_inv_tile", "chol_inv_tile_off",

@@ -24,6 +24,11 @@ from gpx_torch._module import FieldModule
 from gpx_torch.params import leaves, unflatten
 
 
+# A transition kernel: (generator, state) -> state, where state is any tree
+# of tensors that stack() can stack.
+TransitionKernel = Callable[[torch.Generator, Any], Any]
+
+
 class ChainResult(NamedTuple):
     samples: Any          # stacked along a leading draws axis
     final_state: Any
@@ -68,7 +73,7 @@ def _tensors(tree) -> list:
     return [t for f in tree for t in _tensors(f)]
 
 
-def sample(step: Callable, init_state, generator, n_samples: int, *,
+def sample(step: TransitionKernel, init_state, generator, n_samples: int, *,
            burn_in: int = 0, thin: int = 1,
            collect: Callable[[Any], Any] = lambda s: s) -> ChainResult:
     """Run one chain: ``burn_in + n_samples * thin`` transitions, keeping
@@ -88,7 +93,7 @@ def sample(step: Callable, init_state, generator, n_samples: int, *,
                                                 burn_in + n_samples * thin))
 
 
-def sample_chains(step: Callable, init_states, key, n_samples: int,
+def sample_chains(step: TransitionKernel, init_states, key, n_samples: int,
                   n_chains: int, *, burn_in: int = 0, thin: int = 1,
                   collect: Callable[[Any], Any] = lambda s: s,
                   sequential: bool = False) -> ChainResult:

@@ -63,3 +63,18 @@ def test_sampler_entry_points_default_to_the_card():
             make(x, y)
     with pytest.raises(RuntimeError):
         sample_hmc(0, x, y, template, lambda p: 0.0, 2, n_chains=1, eps=0.1)
+
+
+def test_native_build_writes_only_under_build():
+    """fastcsv's shared object goes under build/ at the root of the
+    checkout, content-hashed; nothing is written beside the source."""
+    from gpx_torch.native import build
+
+    src_dir = ROOT / "gpx_torch" / "native"
+    before = sorted(p.name for p in src_dir.iterdir())
+    lib = build.load_fastcsv()
+    assert lib is not None
+    so = build.library_path()
+    assert so.is_file() and so.is_relative_to(ROOT / "build")
+    assert sorted(p.name for p in src_dir.iterdir()) == before
+    assert not [p for p in src_dir.iterdir() if p.suffix == ".so"]

@@ -152,7 +152,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``utils.profiling.profile_gp_stages`` at the bench case (its table,
    the chol_inv stage's fused launches) and a ``device_trace`` of two
    logML evaluations (a warm-up, then one) naming the port's kernels;
-10. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+10. multi-device (``phase_parallel``, gpx_torch.parallel): (a) a mesh of 1
+   over NCCL in this process, ``distributed_logml_value_and_grad`` at the
+   bench case against float64 at phase 3's limits (the float32
+   torch.linalg route the second limit), its ms/eval in turns with phase
+   3's fused route, ``distributed_predict`` at N = 16,383 (the merged
+   data), M = 16,384 against float64 at phase 3b's limits; cross_matvec's
+   device time at the mesh path's per-rank shape (8192 x 32,768, R = 9)
+   beside its bound and ``torch.matmul`` on the prebuilt block; (b) four
+   ranks sharing the card over gloo (collectives staged through pinned
+   host memory): the same logML and gradient on ``make_mesh(data=4)``
+   against float64 and against (a), the iterative logML with ``mesh=`` at
+   examples/large_n.py's case (its 8 coincident pairs merged: the mesh
+   matvec puts White on the diagonal only, as gpx's) against the single
+   card on phase 4's probes, each rank's Gram and cross_matvec launches,
+   peak memory and ms/eval; on a 2 x 2
+   mesh ``sample_mh_2d`` at N = 16,384 and ``svgp.train(mesh=)`` against
+   the single card on the same global minibatches; then ``dryrun_multichip(4)``;
+11. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
     python3 chip_smoke.py --no-iterative
 
@@ -200,6 +217,10 @@ runs phase 1 and phase 8 only, with no ``kernels`` or ``ok`` line.
     python3 chip_smoke.py --examples-only
 
 runs phase 1 and phase 9 only, with no ``kernels`` or ``ok`` line.
+
+    python3 chip_smoke.py --parallel-only
+
+runs phase 1 and phase 10 only, with no ``kernels`` or ``ok`` line.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -5850,6 +5871,371 @@ def phase_examples(torch, gt):
     return out
 
 
+# -- phase 10: multi-device (gpx_torch.parallel) -----------------------------
+
+PAR_RANKS = 4                     # (b): ranks sharing the one card over gloo
+PAR_PANEL = 128
+PAR_PREDICT_PANEL = 127           # N = 16,383 after the merge = 127 x 129
+# sample_mh_2d at the bench width: N, draws, and the proposal scale (the
+# default 0.15, which suits N = 4096, over sqrt(N / 4096): the posterior
+# narrows as 1 / sqrt(N))
+PAR_MH = (N_BENCH, 8, 0.075)
+PAR_SVGP = dict(n=16384, m=256, batch=512, steps=5)
+PAR_TIMEOUT_S = 400
+
+
+def _bench_limits(want):
+    return [1e-4 * abs(want[0]), 0.5, 1e-2 * abs(want[2]),
+            1e-5 * abs(want[3])]
+
+
+def _par_counters():
+    from gpx_torch.ops import cuda_gram, cuda_matvec
+
+    return {"gram": cuda_gram.gram_cuda,
+            "cross_matvec": cuda_matvec.cross_matvec_cuda}
+
+
+def _par_count(torch, fn):
+    """``fn()`` with the Gram and cross_matvec counters set to 0 just
+    before and read just after."""
+    counters = _par_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def _host_ms(torch, fn, reps=1):
+    """Mean host time of ``fn`` over ``reps`` calls after a warm-up,
+    ending in a synchronize (the gloo ranks wait on the host at every
+    collective, so device events would not see that time)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _merged_bench(torch, gt):
+    """The bench data with its coincident pair merged as phase 3b merges it
+    (the second point dropped: N = 16,383), and phase 3b's test grid."""
+    params, x_np, y_np = _bench_case(gt)
+    first = np.sort(np.unique(x_np[:, 0], return_index=True)[1])
+    x = torch.as_tensor(x_np[first], device="cuda")
+    y = torch.as_tensor(y_np[first], device="cuda")
+    xs = torch.linspace(-10.0, 10.0, N_BENCH, device="cuda")[:, None]
+    return params, x, y, xs
+
+
+def _phase10_mesh_of_one(torch, gt):
+    """(a) a mesh of 1 over NCCL in this process: the distributed logML
+    and gradient at the bench case against float64 (phase 3's limits, the
+    float32 torch.linalg route as the second), its ms/eval in turns with
+    phase 3's fused route, and distributed_predict on the merged data
+    against float64 (phase 3b's limits)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gpx_torch.models import gp
+    from gpx_torch.parallel import (distributed_logml_value_and_grad,
+                                    distributed_predict, make_mesh)
+    from gpx_torch.parallel.mesh import init_process_group
+
+    out = {}
+    params, x, y = _bench_case_cuda(torch, gt)
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    init_process_group(0, 1, store, backend="nccl")
+    try:
+        mesh = make_mesh(data=1)
+
+        def dist_eval():
+            return distributed_logml_value_and_grad(params, x, y, mesh,
+                                                    panel=PAR_PANEL)
+
+        torch.cuda.reset_peak_memory_stats()
+        (value, grads), launches = _par_count(torch, dist_eval)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"phase 10 (a) mesh of 1 (NCCL) launches: {json.dumps(launches)}"
+              f"; peak memory {out['peak_gib']:.2f} GiB", flush=True)
+        check(launches["gram"] > 0, "(a) the Gram kernel was not launched")
+        got = _flat_result(gt, value, grads)
+        want = _f64_result(torch, gt, gp, params, x, y)
+        witness = _flat_result(gt, *gp.logml_value_and_grad(
+            params, x, y, method="autodiff"))
+        _hold_scalars("phase 10 (a) d=1", ["value", "h", "sigma", "white"],
+                      got, want, _bench_limits(want), witness)
+        out.update(result=got, f64=want, witness=witness, launches=launches)
+        ms = {}
+        for route, fn in (("distributed", dist_eval),
+                          ("fused", lambda: gp.logml_value_and_grad(
+                              params, x, y))):
+            ms[route] = _median_ms(torch, fn, reps=3)
+        out["ms"] = ms
+        print(f"phase 10 (a) ms/eval at N = {N_BENCH} (median of 3, each "
+              f"call's): distributed d=1 {ms['distributed']}, phase 3's "
+              f"fused {ms['fused']}", flush=True)
+        torch.cuda.empty_cache()
+
+        params, xu, yu, xs = _merged_bench(torch, gt)
+        post, launches = _par_count(torch, lambda: distributed_predict(
+            params, xu, yu, xs, mesh, panel=PAR_PREDICT_PANEL))
+        check(launches["gram"] == 2, "(a) distributed_predict: not 2 Gram "
+              "launches (K's rows and the cross block)")
+        want = _fit64(gt, gp, params, xu, yu, xs)
+        keep = gp.FUSED_MIN_N
+        gp.FUSED_MIN_N = xu.shape[0] + 1
+        try:
+            lin = gp.fit(params, xu, yu, xs)
+        finally:
+            gp.FUSED_MIN_N = keep
+        for what, limit in (("mean", MEAN_LIMIT), ("variance", VAR_LIMIT)):
+            err = _err_of_scale(getattr(post, what), getattr(want, what))
+            _hold_predict(f"phase 10 (a) distributed_predict n={xu.shape[0]} "
+                          f"m={N_BENCH}", what, err,
+                          _err_of_scale(getattr(lin, what),
+                                        getattr(want, what)), limit)
+            out[f"predict_{what}_err"] = err
+        out["predict_ms"] = _median_ms(torch, lambda: distributed_predict(
+            params, xu, yu, xs, mesh, panel=PAR_PREDICT_PANEL), reps=1)[0]
+        print(f"phase 10 (a) distributed_predict: {out['predict_ms']:.2f} ms "
+              f"(panel {PAR_PREDICT_PANEL})", flush=True)
+        del post, want, lin
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+def _phase10_rank(rank):
+    """(b), one rank of four sharing the card over gloo: the main path with
+    the counters set to 0 just before and read just after (the
+    distributed logML and gradient at the bench case on make_mesh(data=4),
+    then the iterative logML with mesh= at examples/large_n.py's N =
+    32,768 on phase 4's probes), its ms/eval and peak memory; then on a 2 x
+    2 mesh sample_mh_2d and svgp.train(mesh=) beside the single-card
+    trajectory on the same global minibatches. Returns plain numbers."""
+    import torch
+
+    import gpx_torch as gt
+    from gpx_torch._device import full_fp32
+    from gpx_torch.models import gp_iterative as gi
+    from gpx_torch.models import svgp
+    from gpx_torch.parallel import (distributed_logml_value_and_grad,
+                                    make_mesh, sample_mh_2d)
+    from gpx_torch.parallel import comm
+
+    full_fp32()
+    out = {}
+    params, x, y = _bench_case_cuda(torch, gt)
+    mesh = make_mesh(data=PAR_RANKS)
+    # large_n's data with its coincident pairs merged, as phase 4 holds
+    # fit_iterative: the mesh matvec splits White off to the diagonal
+    # (gpx's split_noise) where the single-card matvec also meets it at
+    # each pair's r2 = 0, so on the data as drawn the two are different
+    # operators; trimmed to a multiple of the ranks, phase 4's probes on
+    # the rows kept
+    xi_np, yi_np = _iter_case(N_IT)
+    keep = np.flatnonzero(np.r_[True, xi_np[1:, 0] != xi_np[:-1, 0]])
+    keep = torch.as_tensor(keep[:keep.size - keep.size % PAR_RANKS],
+                           device="cuda")
+    xi = torch.as_tensor(xi_np, device="cuda")[keep]
+    yi = torch.as_tensor(yi_np, device="cuda")[keep]
+    p_it = gt.Parameters(mean=gt.zero(), kernel=_iter_kernel(gt))
+    pn, sn = (t[keep] for t in _iter_noise(torch, gi, 0, N_IT,
+                                            ITER["n_probes"]))
+    out["n_iterative"] = int(keep.numel())
+    it_kw = dict(probe_noise=pn, slq_noise=sn,
+                 lanczos_iters=ITER["lanczos_iters"], cg_tol=ITER["cg_tol"],
+                 precond_rank=ITER["precond_rank"])
+
+    def main_path():
+        v, g = distributed_logml_value_and_grad(params, x, y, mesh,
+                                                panel=PAR_PANEL)
+        it = gi._logml_value_and_grad_iterative(p_it, xi, yi, mesh=mesh,
+                                                **it_kw)
+        return v, g, it
+
+    torch.cuda.reset_peak_memory_stats()
+    (v, g, it), out["launches"] = _par_count(torch, main_path)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["logml"] = _flat_result(gt, v, g)
+    out["iterative"] = _flat(gt, it)
+    out["cg_iters"] = it.cg_iters
+    out["ms"] = _host_ms(torch, lambda: distributed_logml_value_and_grad(
+        params, x, y, mesh, panel=PAR_PANEL))
+    out["iterative_ms"] = _host_ms(torch, lambda: gi._logml_value_and_grad_iterative(
+        p_it, xi, yi, mesh=mesh, **it_kw))
+    if rank == 0:
+        one = gi._logml_value_and_grad_iterative(p_it, xi, yi, **it_kw)
+        out["iterative_one"] = _flat(gt, one)
+    del xi, yi, pn, sn
+    torch.cuda.empty_cache()
+
+    grid = make_mesh(chains=2, data=2)
+    n, draws, scale = PAR_MH
+    t0 = time.perf_counter()
+    post = sample_mh_2d(1, x[:n], y[:n], _map_template(gt),
+                        _log_prior(gt, torch), draws, grid, panel=PAR_PANEL,
+                        proposal_scale=scale)
+    torch.cuda.synchronize()
+    out["mh_2d"] = {"shape": list(post.flat.shape),
+                    "finite": bool(torch.isfinite(post.flat).all()),
+                    "accept_rate": post.accept_rate.tolist(),
+                    "s_per_draw": (time.perf_counter() - t0) / (draws + 1)}
+
+    # svgp: one global minibatch a step, each data rank its rows of it
+    sx, sy = _svgp_data(torch, PAR_SVGP["n"])
+    z = sx[:: PAR_SVGP["n"] // PAR_SVGP["m"]][:PAR_SVGP["m"]]
+    p = gt.Parameters(mean=gt.zero(), kernel=gt.se(2.0, 2.0, device="cuda"))
+    rng = np.random.default_rng(3)
+    n_loc, b_loc = PAR_SVGP["n"] // 2, PAR_SVGP["batch"] // 2
+    batches = [np.concatenate([r * n_loc + rng.choice(n_loc, b_loc, False)
+                               for r in range(2)])
+               for _ in range(PAR_SVGP["steps"])]
+    my = comm.axis_index(grid, "data")
+    mine = [b[my * b_loc:(my + 1) * b_loc] - my * n_loc for b in batches]
+    keep = svgp._batch_indices
+    runs = {}
+    try:
+        for tag, source, m in (("mesh", mine, grid), ("one", batches, None)):
+            step = iter(source)
+            svgp._batch_indices = lambda gen, n_, b, device, step=step: (
+                torch.as_tensor(next(step), device=device))
+            res = svgp.train(0, p, z, sx, sy, noise=0.25,
+                             batch_size=PAR_SVGP["batch"],
+                             steps=PAR_SVGP["steps"], learning_rate=1e-2,
+                             train_noise=True, mesh=m)
+            runs[tag] = [float(t) for t in gt.params.leaves(res[0])] + [
+                float(res[3])] + res[4].tolist()
+    finally:
+        svgp._batch_indices = keep
+    out["svgp"] = runs
+    return out
+
+
+def _phase10_four_ranks(torch, gt, ref):
+    """(b): four ranks on the one card over gloo (phase 1 built the kernels;
+    the ranks only load them), held against (a) and float64, then
+    dryrun_multichip(4)."""
+    from gpx_torch.parallel.dryrun import dryrun_multichip, run_ranks
+
+    t0 = time.perf_counter()
+    outs = run_ranks(_phase10_rank, PAR_RANKS, backend="gloo",
+                     timeout_s=PAR_TIMEOUT_S, threads=2)
+    wall = time.perf_counter() - t0
+    r0 = outs[0]
+    for r, o in enumerate(outs):
+        print(f"phase 10 (b) rank {r}: launches {json.dumps(o['launches'])}, "
+              f"peak memory {o['peak_gib']:.2f} GiB, ms/eval d=4 "
+              f"{o['ms']:.1f}, iterative ms/eval {o['iterative_ms']:.1f}, "
+              f"CG {o['cg_iters']}", flush=True)
+        check(o["launches"]["gram"] > 0 and o["launches"]["cross_matvec"] > 0,
+              f"(b) rank {r}: the Gram kernel or cross_matvec not launched")
+        check(o["logml"] == r0["logml"] and o["iterative"] == r0["iterative"],
+              f"(b) rank {r}: a replicated result differs from rank 0's")
+    names = ["value", "h", "sigma", "white"]
+    _hold_scalars("phase 10 (b) d=4", names, r0["logml"], ref["f64"],
+                  _bench_limits(ref["f64"]), ref["witness"])
+    # against (a): the same float32 program summed in another order: each
+    # rank's trailing updates over its own rows and columns, the logdet's
+    # partial sums and the gradients' partials added over the four ranks
+    # (the Gram rows are (a)'s bitwise: centred on the whole set). Each
+    # gradient is a cancellation of ~1e4-sized terms whose float32 rounding
+    # moves with the order; how far is read from the run: the float32
+    # torch.linalg route (a third order) against float64. Each output of
+    # d = 4 is held to (a)'s within phase 3's limit or twice that route's
+    # error, the limit each is held to against float64
+    for nm, a, b, w, f, lim in zip(names, ref["result"], r0["logml"],
+                                   ref["f64"], ref["witness"],
+                                   _bench_limits(ref["f64"])):
+        limit = max(lim, 2.0 * abs(f - w))
+        print(f"phase 10 (b) d=4 against (a) d=1 {nm}: {b:.8e} {a:.8e} diff "
+              f"{abs(a - b):.3e} (limit {limit:.3e}; base {lim:.3e}, "
+              f"float32 witness {abs(f - w):.3e})", flush=True)
+        check(abs(a - b) <= limit, f"(b) d=4 {nm} differs from (a)'s d=1")
+    # the iterative logML against the single card on the same probes, at
+    # phase 4's limits against the same estimator
+    got, one = r0["iterative"], r0["iterative_one"]
+    for nm, kind, a, b in zip(names, names, got, one):
+        lim = {"value": 1e-4 * abs(b), "h": 0.5, "sigma": 1e-2 * abs(b),
+               "white": 1e-3 * abs(b)}[kind]
+        print(f"phase 10 (b) iterative n={r0['n_iterative']} (pairs merged) "
+              f"d=4 {nm}: {a:.8e} single card "
+              f"{b:.8e} diff {abs(a - b):.3e} (limit {lim:.3e})", flush=True)
+        check(math.isfinite(a) and abs(a - b) <= lim,
+              f"(b) iterative d=4 {nm} differs from the single card")
+    mh = r0["mh_2d"]
+    rates = mh["accept_rate"]
+    print(f"phase 10 (b) sample_mh_2d n={PAR_MH[0]} (proposal scale "
+          f"{PAR_MH[2]}): draws {mh['shape']}, finite {mh['finite']}, accept "
+          f"rates {rates}, {mh['s_per_draw']:.2f} s a logML of every chain "
+          f"(the init's and each draw's)", flush=True)
+    check(mh["shape"][:2] == [2, PAR_MH[1]] and mh["finite"]
+          and 0.0 < float(np.mean(rates)) < 1.0, "(b) sample_mh_2d")
+    a, b = (np.array(r0["svgp"][k]) for k in ("mesh", "one"))
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+    print(f"phase 10 (b) svgp.train(mesh=) {PAR_SVGP['steps']} steps against "
+          f"the single card on the same global minibatches: max rel "
+          f"{rel:.3e} (limit 1e-4) over the trained leaves, noise and ELBO "
+          f"trace", flush=True)
+    check(rel <= 1e-4, "(b) svgp.train(mesh=) differs from the single card")
+    t1 = time.perf_counter()
+    dryrun_multichip(PAR_RANKS, device="cuda", timeout_s=PAR_TIMEOUT_S)
+    print(f"phase 10 (b) dryrun_multichip({PAR_RANKS}, cuda): ok "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    return {"ranks": outs, "ranks_wall_s": wall}
+
+
+def _cross_matvec_distributed_time(torch, gt):
+    """cross_matvec at the mesh path's per-rank shape (8192 x 32,768, R =
+    probes + 1 = 9): its device time by CUDA-graph replay beside its bound
+    and torch.matmul on the prebuilt block."""
+    from gpx_torch.ops.cuda_matvec import cross_matvec_cuda
+
+    xi_np, _ = _iter_case(N_IT)
+    x = torch.as_tensor(xi_np, device="cuda")
+    x = x - x.mean(dim=0, keepdim=True)
+    rows = N_IT // PAR_RANKS
+    r = ITER["n_probes"] + 1
+    v = torch.randn((N_IT, r), generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    kern = _iter_kernel(gt).kernels[0]        # the smooth part (split_noise)
+    ms = graph_ms(torch, lambda: cross_matvec_cuda(kern, x[:rows], x, v))
+    k = kern.gram(x[:rows], x)
+    lib = graph_ms(torch, lambda: k @ v)
+    bound, by = _matvec_bound(rows, N_IT, 1, r, "se+white")
+    print(f"phase 10 cross_matvec {rows} x {N_IT}, R = {r}: {ms:.4f} ms "
+          f"(CUDA-graph replay), bound {bound:.4f} ms ({by}), torch.matmul "
+          f"on the prebuilt block {lib:.4f} ms", flush=True)
+    del k
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bound, "bound_by": by, "library_ms": lib}
+
+
+def phase_parallel(torch, gt):
+    """Phase 10: gpx_torch.parallel on the card, (a) and (b), and
+    cross_matvec's time at the mesh path's shape."""
+    t_all = time.perf_counter()
+    NOT_HELD.clear()
+    SECOND_LIMIT.clear()
+    out = {"mesh_of_one": _phase10_mesh_of_one(torch, gt)}
+    out["cross_matvec_rank_shape"] = _cross_matvec_distributed_time(torch, gt)
+    out["four_ranks"] = _phase10_four_ranks(torch, gt, out["mesh_of_one"])
+    out["not_held"] = list(NOT_HELD)
+    out["second_limit"] = list(SECOND_LIMIT)
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"phase 10 not held: {NOT_HELD}; held by the second limit: "
+          f"{SECOND_LIMIT}; {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5892,6 +6278,12 @@ def main() -> int:
         print(f"total {time.perf_counter() - t0:.1f} s (examples only)",
               flush=True)
         return 0
+    if "--parallel-only" in sys.argv[1:]:
+        summary = {"parallel": phase_parallel(torch, gt)}
+        print("summary: " + json.dumps(summary), flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s (parallel only)",
+              flush=True)
+        return 0
     if "--classify-dlm-only" in sys.argv[1:]:
         summary = {"statespace": phase_statespace(torch, gt)}
         print("summary: " + json.dumps(summary), flush=True)
@@ -5927,6 +6319,7 @@ def main() -> int:
     summary["models"] = phase_models(torch, gt)
     summary["statespace"] = phase_statespace(torch, gt)
     summary["examples"] = phase_examples(torch, gt)
+    summary["parallel"] = phase_parallel(torch, gt)
     print("summary: " + json.dumps(summary), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     order = ("gram", "trmm", "syrk_lower", "chol_inv_tile", "chol_inv_tile_off",

@@ -4,8 +4,11 @@ The reference's full workflow (TemperatureKriging.scala:37-107): the GP
 residual-kernel hyperparameters are *inferred by MCMC*, the chain streams to
 CSV, the posterior-mean parameters are re-read from that CSV (:37-50 reads
 ``temperature_gp_residuals_0.csv``), and the grid is krigged with them
-(:84-107). The JAX package splits the grid's columns over a device mesh;
-the port runs on one card, and ``gp.fit`` krigs the whole grid there.
+(:84-107). The grid is krigged through the test-point-sharded predict
+(``gpx_torch.parallel.sharded_predict``), its cells split over a mesh of
+every rank of the world: one rank when the example runs alone, or the
+ranks ``torchrun --nproc-per-node`` starts (the cells must divide over
+them).
 """
 
 import pathlib
@@ -20,6 +23,8 @@ from gpx_torch.examples import _common
 from gpx_torch.examples.temperature import uniform_locations
 from gpx_torch.infer import sample_mh
 from gpx_torch.models import dlmgp, gp
+from gpx_torch.parallel import make_mesh, sharded_predict
+from gpx_torch.parallel.mesh import world
 
 OUT = pathlib.Path(__file__).parent / "output"
 
@@ -89,11 +94,15 @@ def main(argv=None):
           {k: round(v, 3) for k, v in post_mean.items()})
     fitted = fitted_params(post_mean, device)
 
-    # 3. krig the grid with the posterior-mean parameters
+    # 3. krig the grid with the posterior-mean parameters through the
+    #    test-point-sharded predict path (grid cells split over the mesh)
     grid = dlmgp.grid_locations((-1.8, -1.2), (54.8, 55.2), args.nx, args.ny,
                                 device=device)
-    summary = gp.fit(fitted, locs, resid, grid)
-    print(f"krigged {args.nx * args.ny} grid cells on {device}")
+    with world(device) as ranks:
+        mesh = make_mesh(data=ranks, device=device)
+        summary = sharded_predict(fitted, locs, resid, grid, mesh)
+    print(f"krigged {args.nx * args.ny} grid cells over {ranks} rank(s) on "
+          f"{device}")
 
     if not args.no_plots:
         plt = plots._plt()

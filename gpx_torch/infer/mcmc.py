@@ -14,8 +14,11 @@ Differences from the JAX package, by design of the port:
   ignored where gpx takes it.
 - ``chunk_iters=`` and ``program_cache=`` bound and cache compiled XLA
   programs; the port compiles nothing, so they are accepted and ignored
-  (``chunk_iters < 1`` still raises, as in gpx). ``mesh=`` raises
-  ``NotImplementedError``: the distributed likelihood is not ported.
+  (``chunk_iters < 1`` still raises, as in gpx).
+- ``mesh=`` makes every likelihood (and its gradient) the distributed
+  panel Cholesky over ``mesh[mesh_axis]``
+  (:func:`gpx_torch.parallel.distributed_logml`); every rank of the axis
+  calls the sampler with the same arguments and runs the same chains.
 - The ``GPX_UNSAFE_FAST_ADAPT`` environment escape of the fast-warmup
   check is not ported: that configuration always raises.
 """
@@ -46,15 +49,22 @@ class PosteriorSamples(NamedTuple):
 
 
 def _gp_log_density(x, y, log_prior, nugget, safe=False,
-                    analytic_gradients=False, mesh=None, fast_gradients=False):
+                    analytic_gradients=False, mesh=None, mesh_axis="data",
+                    panel=128, fast_gradients=False):
     if mesh is not None:
         if safe or analytic_gradients:
             raise ValueError(
                 "mesh= is its own likelihood path (distributed panel "
-                "Cholesky) — combine it with neither safe=True nor "
+                "Cholesky; autograd through it is the distributed analytic "
+                "gradient) — combine it with neither safe=True nor "
                 "analytic_gradients=True")
-        raise NotImplementedError("mesh= (the distributed likelihood) is "
-                                  "not ported")
+        from gpx_torch.parallel import distributed_logml
+
+        def log_density(p):
+            return log_prior(p) + distributed_logml(
+                p, x, y, mesh, axis=mesh_axis, nugget=nugget, panel=panel)
+
+        return log_density
     if analytic_gradients:
         if safe:
             raise ValueError("analytic_gradients has no nugget-escalation "
@@ -138,7 +148,7 @@ def sample_mh(key, x, y, template, log_prior: Callable, n_samples: int, *,
     are tensors elsewhere."""
     x, y = check_xy(x, y)
     log_density = _gp_log_density(x, y, log_prior, nugget, safe=safe,
-                                  mesh=mesh)
+                                  mesh=mesh, mesh_axis=mesh_axis, panel=panel)
     return sample_mh_log_density(
         key, template, log_density, n_samples,
         proposal_scale=proposal_scale, n_chains=n_chains, burn_in=burn_in,
@@ -218,7 +228,7 @@ def sample_hmc(key, x, y, template, log_prior: Callable, n_samples: int, *,
 
     log_density = _gp_log_density(x, y, log_prior, nugget,
                                   analytic_gradients=analytic_gradients,
-                                  mesh=mesh)
+                                  mesh=mesh, mesh_axis=mesh_axis, panel=panel)
     warmup_log_density = _fast_warmup_density(
         fast_warmup, analytic_gradients, mesh, x, y, log_prior, nugget,
         eps=eps)
@@ -345,7 +355,7 @@ def sample_ehmc(key, x, y, template, log_prior: Callable, n_samples: int, *,
     x, y = check_xy(x, y)
     log_density = _gp_log_density(x, y, log_prior, nugget,
                                   analytic_gradients=analytic_gradients,
-                                  mesh=mesh)
+                                  mesh=mesh, mesh_axis=mesh_axis, panel=panel)
     return sample_ehmc_log_density(
         key, template, log_density, n_samples, l0=l0,
         warmup_iters=warmup_iters, k=k, l_max=l_max, n_chains=n_chains,
@@ -396,7 +406,7 @@ def sample_nuts(key, x, y, template, log_prior: Callable, n_samples: int, *,
     x, y = check_xy(x, y)
     log_density = _gp_log_density(x, y, log_prior, nugget,
                                   analytic_gradients=analytic_gradients,
-                                  mesh=mesh)
+                                  mesh=mesh, mesh_axis=mesh_axis, panel=panel)
     warmup_log_density = _fast_warmup_density(
         fast_warmup, analytic_gradients, mesh, x, y, log_prior, nugget,
         eps=eps)

@@ -103,10 +103,12 @@ class Kernel(FieldModule):
         return torch.func.vmap(
             lambda xi: self.evaluate_xx(xi[None], xi[None], r2)[0, 0])(x)
 
-    def gram(self, x, x2=None, *, nugget: float = 0.0, method: str = "auto"):
+    def gram(self, x, x2=None, *, nugget: float = 0.0, method: str = "auto",
+             center_of=None):
         from gpx_torch.ops.gram import gram
 
-        return gram(self, x, x2, nugget=nugget, method=method)
+        return gram(self, x, x2, nugget=nugget, method=method,
+                    center_of=center_of)
 
     def __add__(self, other):
         a = tuple(self.kernels) if isinstance(self, Sum) else (self,)

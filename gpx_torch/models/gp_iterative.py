@@ -15,7 +15,9 @@ Loops that JAX writes as ``lax.while_loop``/``scan`` are Python loops here;
 CG reads its residual norms on the host once per iteration. Probes are
 drawn from a ``torch.Generator``: the draws differ from JAX's, so the
 private cores take the base noise and the tests feed them gpx's own.
-Multi-device (``mesh=``) is not ported yet.
+``mesh=`` row-shards every Gram matvec over ``mesh[mesh_axis]``
+(:mod:`gpx_torch.parallel.dist_matvec`): every rank of the axis calls the
+entry point with the same arguments and gets the same result.
 """
 
 from __future__ import annotations
@@ -41,9 +43,30 @@ _TINY = 1e-30
 _GRAD_BLOCK_ENTRIES = 1 << 27
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device) is not ported yet")
+def _matvec(kernel, x, nugget, mesh, mesh_axis, method="auto"):
+    """``v -> (K + nugget I) v`` on replicated vectors: one device's
+    streamed matvec, or with a mesh the row-sharded one, gathered."""
+    if mesh is None:
+        if method == "xla":
+            block = max(1, min(2048, _GRAD_BLOCK_ENTRIES // x.shape[0]))
+            return lambda v: _gram_matvec_torch(kernel, x, v, nugget, block)
+        return lambda v: gram_matvec(kernel, x, v, nugget=nugget)
+    from gpx_torch.parallel.dist_matvec import gathered_matvec
+
+    return gathered_matvec(kernel, x, mesh, axis=mesh_axis, nugget=nugget,
+                           method=method)
+
+
+def _leaf_grads(fn, tensors, mesh, mesh_axis):
+    """``d fn / d tensors`` of the scalar ``fn(tensors)``; with a mesh, of
+    the replicated scalar whose matvecs are gathered over it."""
+    if mesh is None:
+        ls = [t.detach().requires_grad_() for t in tensors]
+        with torch.enable_grad():
+            return _grads_or_zeros(fn(ls), ls)
+    from gpx_torch.parallel import comm
+
+    return comm.value_and_grads(fn, tensors, mesh, mesh_axis)[1]
 
 
 def _m_inv(precond):
@@ -345,20 +368,16 @@ def fit_iterative(params: Parameters, x, y, xs, *,
       batched CG on the cross-covariance columns, ``var = k_ss -
       diag(K(S, x) K^-1 K(x, S))``; ``"none"`` skips it.
 
-    ``xs`` takes ``x``'s device and type. ``mesh`` must be ``None``:
-    multi-device is not ported yet."""
+    ``xs`` takes ``x``'s device and type. ``mesh=`` row-shards every Gram
+    matvec of the solves over ``mesh[mesh_axis]``."""
     if variance not in ("exact", "none"):
         raise ValueError(f"unknown variance mode: {variance}")
-    _no_mesh(mesh)
     full_fp32()
     x, y = check_xy(x, y)
     xs = as_locations(as_tensor(xs, device=x.device, dtype=x.dtype))
     m = xs.shape[0]
     kernel = params.kernel
-
-    def matvec(v):
-        return gram_matvec(kernel, x, v, nugget=nugget)
-
+    matvec = _matvec(kernel, x, nugget, mesh, mesh_axis)
     precond = _preconditioner(kernel, x, precond_rank, nugget)
     alpha, cg_iters, cg_converged = cg_solve(
         matvec, y - params.mean(x), tol=cg_tol, max_iters=cg_max_iters,
@@ -402,9 +421,10 @@ def logml_value_and_grad_iterative(
     it draws the gradient probes' Rademacher base, then the SLQ base
     (Normal with a preconditioner, else Rademacher). ``precond_rank > 0``
     preconditions every solve with the pivoted Cholesky of the kernel's
-    smooth part. Memory is O(N (D + probes)). ``mesh`` must be ``None``:
-    multi-device is not ported yet."""
-    _no_mesh(mesh)
+    smooth part. Memory is O(N (D + probes)). ``mesh=`` runs every matvec
+    (CG, Lanczos and the gradient contraction) with its row range sharded
+    over ``mesh[mesh_axis]``; probes, vectors and the preconditioner stay
+    replicated."""
     x, y = check_xy(x, y)
     n = x.shape[0]
     probe_noise = _rademacher(key, (n, n_probes), y.dtype, x.device)
@@ -413,7 +433,8 @@ def logml_value_and_grad_iterative(
     return _logml_value_and_grad_iterative(
         params, x, y, probe_noise=probe_noise, slq_noise=slq_noise,
         nugget=nugget, lanczos_iters=lanczos_iters, cg_tol=cg_tol,
-        cg_max_iters=cg_max_iters, precond_rank=precond_rank)
+        cg_max_iters=cg_max_iters, precond_rank=precond_rank, mesh=mesh,
+        mesh_axis=mesh_axis)
 
 
 def _logml_value_and_grad_iterative(params: Parameters, x, y, *, probe_noise,
@@ -421,7 +442,8 @@ def _logml_value_and_grad_iterative(params: Parameters, x, y, *, probe_noise,
                                     lanczos_iters: int = 32,
                                     cg_tol: float = 1e-5,
                                     cg_max_iters: int = 1000,
-                                    precond_rank: int = 0) -> IterativeLogML:
+                                    precond_rank: int = 0, mesh=None,
+                                    mesh_axis: str = "data") -> IterativeLogML:
     """The iterative logML on given base noise, both (n, s): Rademacher
     ``probe_noise`` for the gradient probes (taken through ``P^(1/2)`` with
     a preconditioner), and ``slq_noise``, the SLQ probes (Rademacher
@@ -430,10 +452,7 @@ def _logml_value_and_grad_iterative(params: Parameters, x, y, *, probe_noise,
     x, y = check_xy(x, y)
     n = x.shape[0]
     kernel = params.kernel
-
-    def matvec(v):
-        return gram_matvec(kernel, x, v, nugget=nugget)
-
+    matvec = _matvec(kernel, x, nugget, mesh, mesh_axis)
     precond = _preconditioner(kernel, x, precond_rank, nugget)
     ms = [t.detach().requires_grad_() for t in leaves(params.mean)]
     with torch.enable_grad():
@@ -468,16 +487,14 @@ def _logml_value_and_grad_iterative(params: Parameters, x, y, *, probe_noise,
     # with the vectors held fixed. The JAX package runs this contraction
     # through XLA outside any Pallas kernel, on the TPU too, so here it is
     # the torch route on the card as well (two calls per evaluation).
-    block = max(1, min(2048, _GRAD_BLOCK_ENTRIES // n))
-    kl = [t.detach().requires_grad_() for t in leaves(kernel)]
-    with torch.enable_grad():
-        kern = unflatten(kernel, kl)
-        quad = 0.5 * (alpha @ _gram_matvec_torch(kern, x, alpha[:, None],
-                                                 nugget, block)[:, 0])
-        tr = torch.mean(torch.sum(
-            probe_solves * _gram_matvec_torch(kern, x, probe_weights, nugget,
-                                              block), dim=0))
-        d_kernel = _grads_or_zeros(quad - 0.5 * tr, kl)
+    def contraction(kl):
+        mv = _matvec(unflatten(kernel, kl), x, nugget, mesh, mesh_axis,
+                     method="xla")
+        quad = 0.5 * (alpha @ mv(alpha[:, None])[:, 0])
+        tr = torch.mean(torch.sum(probe_solves * mv(probe_weights), dim=0))
+        return quad - 0.5 * tr
+
+    d_kernel = _leaf_grads(contraction, leaves(kernel), mesh, mesh_axis)
     d_mean = _grads_or_zeros(mean_val, ms, alpha.to(mean_val.dtype))
     return IterativeLogML(
         value=value.detach(),

@@ -18,8 +18,9 @@ gaps): it is defined at repeated eigenvalues.
 Incomplete grids: ``fit(mask=...)`` solves for the posterior mean by CG on
 the mask-embedded Kronecker matvec (exact under masking; no ``eigh``).
 :class:`CoregionAxis` makes one axis an output axis, ``B (x) K_time (x)
-K_space + s2 I``. ``mesh=`` raises ``NotImplementedError``: multi-device is
-not ported.
+K_space + s2 I``. ``mesh=`` shards the lattice tensor's leading axis over
+``mesh[mesh_axis]`` in the rotations (every rank of the axis calls with the
+same arguments and gets the same result).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from gpx_torch import bijectors as bij
 from gpx_torch._device import as_tensor, full_fp32
 from gpx_torch._module import FieldModule
 from gpx_torch.models import gp
-from gpx_torch.models.gp_iterative import _no_mesh, cg_solve
+from gpx_torch.models.gp_iterative import cg_solve
 from gpx_torch.models.multioutput import (_held_basis_surrogate, _on,
                                           _staggered_w, _with_gradient)
 from gpx_torch.ops import chol
@@ -160,18 +161,44 @@ def _axis_contract(m, t, axis):
 
 
 def _shard0(t, mesh, mesh_axis):
-    """The JAX package's sharding of a grid tensor's leading axis over
-    ``mesh[mesh_axis]``: ``t`` itself, as multi-device is not ported."""
-    _no_mesh(mesh)
-    return t
+    """This rank's block of a grid tensor's leading axis over
+    ``mesh[mesh_axis]`` (``t`` itself without a mesh); the axis must divide
+    over the ranks."""
+    if mesh is None:
+        return t
+    from gpx_torch.parallel import comm
+
+    d = comm.axis_size(mesh, mesh_axis)
+    if t.shape[0] % d:
+        raise ValueError(f"the leading grid axis ({t.shape[0]}) must divide "
+                         f"over the {d}-rank '{mesh_axis}' axis")
+    rows = t.shape[0] // d
+    i = comm.axis_index(mesh, mesh_axis)
+    return t[i * rows:(i + 1) * rows]
 
 
 def _rotate(t, mats, mesh=None, mesh_axis: str = "data"):
-    """``(prod_i M_i) vec(t)`` as a chain of per-axis contractions."""
+    """``(prod_i M_i) vec(t)`` as a chain of per-axis contractions. With a
+    mesh the leading axis is sharded: the contractions along the other axes
+    are rank-local, and the axis-0 rotation is each rank's partial product
+    with its columns of ``M_0`` and a reduce-scatter; the result is
+    all-gathered (replicated)."""
+    if mesh is None:
+        for i, m in enumerate(mats):
+            t = _axis_contract(m, t, i)
+        return t
+    from gpx_torch.parallel import comm
+
     t = _shard0(t, mesh, mesh_axis)
+    rows = t.shape[0]
+    i0 = comm.axis_index(mesh, mesh_axis) * rows
     for i, m in enumerate(mats):
-        t = _axis_contract(m, t, i)
-    return t
+        if i == 0:
+            t = comm.reduce_scatter(
+                _axis_contract(m[:, i0:i0 + rows], t, 0), mesh, mesh_axis)
+        else:
+            t = _axis_contract(m, t, i)
+    return comm.all_gather(t, mesh, mesh_axis)
 
 
 def _grams(p: GridParams, axes):
@@ -208,8 +235,9 @@ def log_marginal_likelihood(p: GridParams, axes, Y, *,
                             nugget: float = gp.LOGML_NUGGET, mesh=None,
                             mesh_axis: str = "data"):
     """Exact ``log N(vec Y | 0, prod_i K_i + (noise + nugget) I)`` through
-    the Kronecker eigen-identity; ``Y`` in grid shape or flat (C order)."""
-    _no_mesh(mesh)
+    the Kronecker eigen-identity; ``Y`` in grid shape or flat (C order).
+    ``mesh=`` shards the rotations' leading lattice axis (n_1 must divide
+    by the axis size; put the long axis first)."""
     full_fp32()
     axes = _check_axes(p, axes)
     shape = tuple(a.shape[0] for a in axes)
@@ -217,7 +245,7 @@ def log_marginal_likelihood(p: GridParams, axes, Y, *,
     grams = _grams(p, axes)
     with torch.no_grad():
         qs, lams, s = _eigs(p, grams, nugget)
-        yt = _rotate(Y, [q.T for q in qs])
+        yt = _rotate(Y, [q.T for q in qs], mesh, mesh_axis)
         quad = torch.sum(yt * yt / s)
         logdet = torch.sum(torch.log(s))
         value = -0.5 * (quad + logdet
@@ -228,7 +256,7 @@ def log_marginal_likelihood(p: GridParams, axes, Y, *,
     # the gradient with the eigenbases held constant, as the Kronecker
     # ICM's: a = K^-1 vec Y in grid shape
     with torch.no_grad():
-        alpha = _rotate(yt / s, qs)
+        alpha = _rotate(yt / s, qs, mesh, mesh_axis)
     return _with_gradient(value, _held_basis_surrogate(
         grams, qs, lams, s, alpha, p.noise, Y))
 
@@ -296,8 +324,8 @@ def fit(p: GridParams, axes, Y, xs, *, nugget: float = gp.PREDICT_NUGGET,
 
     ``mask`` (grid-shaped boolean, True = observed): the posterior mean on
     an incomplete lattice by CG on the mask-embedded Kronecker matvec; no
-    variance then (an empty one, as ``variance=False``)."""
-    _no_mesh(mesh)
+    variance then (an empty one, as ``variance=False``). ``mesh=`` shards
+    the rotations' leading lattice axis."""
     full_fp32()
     axes = _check_axes(p, axes)
     shape = tuple(a.shape[0] for a in axes)
@@ -309,8 +337,8 @@ def fit(p: GridParams, axes, Y, xs, *, nugget: float = gp.PREDICT_NUGGET,
         return gp.PosteriorSummary(x=xs, mean=mean,
                                    variance=mean.new_zeros((0,)))
     qs, _, s = _eigs(p, _grams(p, axes), nugget)
-    yt = _rotate(Y, [q.T for q in qs])
-    alpha = _rotate(yt / s, qs)                        # K^-1 vec Y, gridded
+    yt = _rotate(Y, [q.T for q in qs], mesh, mesh_axis)
+    alpha = _rotate(yt / s, qs, mesh, mesh_axis)       # K^-1 vec Y, gridded
     mean = _mean_chain(cross, alpha)
     if not variance:
         return gp.PosteriorSummary(x=xs, mean=mean,

@@ -19,8 +19,9 @@ diagonalized per output eigenvector by ``eigh(B)``, and each rotated column
 is a standard Woodbury (:class:`KronWoodburyPreconditioner`).
 
 Randomness comes from a ``torch.Generator``; the private core takes the
-base noise, so tests can feed it the JAX package's draws. ``mesh=`` raises
-``NotImplementedError``: multi-device is not ported.
+base noise, so tests can feed it the JAX package's draws. ``mesh=``
+row-shards every K_q matvec over ``mesh[mesh_axis]``; vectors stay
+replicated.
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ import torch
 
 from gpx_torch._device import as_tensor, full_fp32
 from gpx_torch.kernels import split_noise
-from gpx_torch.models.gp import LOGML_NUGGET, PREDICT_NUGGET, _grads_or_zeros
+from gpx_torch.models.gp import LOGML_NUGGET, PREDICT_NUGGET
 from gpx_torch.models.gp_iterative import (
-    _GRAD_BLOCK_ENTRIES, _no_mesh, _normal, _rademacher, _slq_logdet,
+    _leaf_grads, _matvec, _normal, _rademacher, _slq_logdet,
     _slq_logdet_preconditioned, cg_solve, pivoted_cholesky,
 )
 from gpx_torch.models.multioutput import (
@@ -42,9 +43,8 @@ from gpx_torch.models.multioutput import (
     coregion_matrix,
 )
 from gpx_torch.ops import chol
-from gpx_torch.ops.cuda_matvec import _gram_matvec_torch
 from gpx_torch.ops.distance import as_locations
-from gpx_torch.ops.matvec import cross_matvec, gram_matvec
+from gpx_torch.ops.matvec import cross_matvec
 from gpx_torch.params import leaves, unflatten
 
 
@@ -68,8 +68,8 @@ def kron_matvec(p, x, *, nugget: float = 0.0, mesh=None,
     :func:`gpx_torch.ops.matvec.gram_matvec` (the CUDA kernel for float32
     on the card); ``method="xla"`` is the plain row-blocked torch route,
     differentiable in every hyperparameter (kernels, W, kappa, noise), for
-    the gradient contraction."""
-    _no_mesh(mesh)
+    the gradient contraction. ``mesh=`` row-shards each Gram matvec over
+    ``mesh[mesh_axis]`` (vectors stay replicated)."""
     if method not in ("auto", "xla"):
         raise ValueError(f"unknown method: {method!r}")
     full_fp32()
@@ -78,12 +78,9 @@ def kron_matvec(p, x, *, nugget: float = 0.0, mesh=None,
     t = p.n_outputs
     terms = _terms(p)
     d = _noise_vec(p) + nugget                      # (T,) additive diagonal
-    block = max(1, min(2048, _GRAD_BLOCK_ENTRIES // n))
 
     def mv_q(kern, cols):
-        if method == "xla":
-            return _gram_matvec_torch(kern, x, cols, 0.0, block)
-        return gram_matvec(kern, x, cols, nugget=0.0)
+        return _matvec(kern, x, 0.0, mesh, mesh_axis, method=method)(cols)
 
     def mv(v):
         squeeze = v.ndim == 1
@@ -234,8 +231,8 @@ def logml_value_and_grad_iterative(
     ``torch.Generator``: it draws the gradient probes' Rademacher base,
     then the SLQ base (Normal with a preconditioner, else Rademacher).
     ``precond_rank > 0`` builds the Kronecker Woodbury (ICM, shared noise
-    only)."""
-    _no_mesh(mesh)
+    only). ``mesh=`` row-shards every K_q matvec over
+    ``mesh[mesh_axis]``."""
     x, Y = _check_xy(x, Y, p)
     n, t = Y.shape
     shape = (n, t, n_probes) if precond_rank > 0 else (n * t, n_probes)
@@ -245,7 +242,7 @@ def logml_value_and_grad_iterative(
     return _logml_value_and_grad_iterative(
         p, x, Y, probe_noise=probe_noise, slq_noise=slq_noise, nugget=nugget,
         lanczos_iters=lanczos_iters, cg_tol=cg_tol, cg_max_iters=cg_max_iters,
-        precond_rank=precond_rank)
+        precond_rank=precond_rank, mesh=mesh, mesh_axis=mesh_axis)
 
 
 def _logml_value_and_grad_iterative(p, x, Y, *, probe_noise, slq_noise,
@@ -253,7 +250,9 @@ def _logml_value_and_grad_iterative(p, x, Y, *, probe_noise, slq_noise,
                                     lanczos_iters: int = 32,
                                     cg_tol: float = 1e-5,
                                     cg_max_iters: int = 1000,
-                                    precond_rank: int = 0) -> IterativeMoLogML:
+                                    precond_rank: int = 0, mesh=None,
+                                    mesh_axis: str = "data"
+                                    ) -> IterativeMoLogML:
     """The estimator on given base noise: (N, T, s) blocks taken through
     ``P^(1/2)`` with a preconditioner, else flat (NT, s) Rademacher probes
     used as they are; ``probe_noise`` for the gradient, ``slq_noise`` for
@@ -262,7 +261,7 @@ def _logml_value_and_grad_iterative(p, x, Y, *, probe_noise, slq_noise,
     x, Y = _check_xy(x, Y, p)
     n, t = Y.shape
     nt = n * t
-    matvec = kron_matvec(p, x, nugget=nugget)
+    matvec = kron_matvec(p, x, nugget=nugget, mesh=mesh, mesh_axis=mesh_axis)
     precond = (kron_preconditioner(p, x, precond_rank, nugget=nugget)
                if precond_rank > 0 else None)
     y = Y.T.reshape(-1)                               # flat output-major
@@ -290,12 +289,14 @@ def _logml_value_and_grad_iterative(p, x, Y, *, probe_noise, slq_noise,
     # d/dtheta [-1/2 y^T K^-1 y] = 1/2 alpha^T G alpha and d/dtheta [-1/2
     # logdet] = -1/2 E[(K^-1 z)^T G P^-1 z], G = dK/dtheta: autograd of
     # these scalar forms through the plain torch matvec, vectors held fixed
-    ls = [t_.detach().requires_grad_() for t_ in leaves(p)]
-    with torch.enable_grad():
-        mv_d = kron_matvec(unflatten(p, ls), x, nugget=nugget, method="xla")
+    def contraction(ls):
+        mv_d = kron_matvec(unflatten(p, ls), x, nugget=nugget, mesh=mesh,
+                           mesh_axis=mesh_axis, method="xla")
         quad = 0.5 * (alpha @ mv_d(alpha[:, None])[:, 0])
         tr = torch.mean(torch.sum(probe_solves * mv_d(probe_weights), dim=0))
-        grads = _grads_or_zeros(quad - 0.5 * tr, ls)
+        return quad - 0.5 * tr
+
+    grads = _leaf_grads(contraction, leaves(p), mesh, mesh_axis)
     return IterativeMoLogML(value=value.detach(), grads=unflatten(p, grads),
                             cg_iters=cg_iters, cg_converged=cg_converged)
 
@@ -330,14 +331,13 @@ def fit_iterative(p, x, Y, xs, *, nugget: float = PREDICT_NUGGET,
       ``"none"`` skips it."""
     if variance not in ("exact", "none"):
         raise ValueError(f"unknown variance mode: {variance}")
-    _no_mesh(mesh)
     full_fp32()
     x, Y = _check_xy(x, Y, p)
     xs = as_locations(as_tensor(xs, device=x.device, dtype=x.dtype))
     n, t = Y.shape
     m = xs.shape[0]
     terms = _terms(p)
-    matvec = kron_matvec(p, x, nugget=nugget)
+    matvec = kron_matvec(p, x, nugget=nugget, mesh=mesh, mesh_axis=mesh_axis)
     precond = (kron_preconditioner(p, x, precond_rank, nugget=nugget)
                if precond_rank > 0 else None)
 

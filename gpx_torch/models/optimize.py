@@ -34,8 +34,12 @@ Differences from the JAX package, by design of the port:
   draws ``steps + 1`` seeds from it and gives each step (and the final
   evaluation) a generator of its own on the data's device.
 - ``chunk_steps`` bounds one compiled program's run time on the TPU; the
-  port compiles nothing, so it is accepted and ignored. ``mesh=`` raises
-  ``NotImplementedError``: the distributed likelihood is not ported.
+  port compiles nothing, so it is accepted and ignored.
+- ``mesh=`` runs every evaluation through the distributed likelihood
+  (:func:`gpx_torch.parallel.distributed_logml_value_and_grad`, panel
+  Cholesky over ``mesh[mesh_axis]``), or with ``method="iterative"``
+  through the row-sharded matvec; every rank of the axis calls with the
+  same arguments and takes the same steps.
 """
 
 from __future__ import annotations
@@ -68,12 +72,6 @@ class OptimizeResult(NamedTuple):
     values: torch.Tensor
     grad_norm: torch.Tensor
     converged: bool
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the distributed likelihood) is "
-                                  "not ported")
 
 
 def optimize(params: Parameters, x, y, *, nugget: float = gp.LOGML_NUGGET,
@@ -124,7 +122,6 @@ def optimize(params: Parameters, x, y, *, nugget: float = gp.LOGML_NUGGET,
                 "method='iterative' has stochastic (SLQ/Hutchinson) "
                 "gradients — use optimizer='adam'; a line search cannot "
                 "compare noisy objective values")
-        _no_mesh(mesh)
         loglik = _iterative_loglik_vjp(
             x, y, nugget=nugget, n_probes=n_probes,
             lanczos_iters=lanczos_iters, precond_rank=precond_rank,
@@ -132,7 +129,11 @@ def optimize(params: Parameters, x, y, *, nugget: float = gp.LOGML_NUGGET,
         step_keys = generators(0 if key is None else key, steps + 1,
                                x.device)
     elif mesh is not None:
-        _no_mesh(mesh)
+        from gpx_torch.parallel import distributed_logml
+
+        def loglik(p):
+            return distributed_logml(p, x, y, mesh, axis=mesh_axis,
+                                     nugget=nugget, panel=panel)
     elif method == "analytic":
         loglik = gp.log_marginal_likelihood_analytic_vjp(x, y, nugget=nugget)
     elif method == "hybrid":

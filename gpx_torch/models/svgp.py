@@ -21,8 +21,9 @@ Differences from the JAX package, by design of the port:
 - :func:`train` is ``torch.optim.Adam`` in a Python loop (whose update is
   ``optax.adam``'s) over minibatches drawn by :func:`_batch_indices` from a
   ``torch.Generator``, where the JAX package scans ``optax.adam`` over
-  ``jax.random`` draws; the draws differ. ``mesh=`` raises
-  ``NotImplementedError``: data-parallel training is not ported.
+  ``jax.random`` draws; the draws differ. With ``mesh=`` each rank draws
+  from its own generator, seeded from ``key`` by its coordinate, where the
+  JAX package folds the coordinate into the step's key.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from typing import NamedTuple
 import torch
 
 from gpx_torch._device import as_tensor, full_fp32, resolve_device
-from gpx_torch.models.gp_iterative import _no_mesh
 # the Kuu regularization policy has one source: gpx_torch.models.sparse
 from gpx_torch.models.sparse import JITTER, JITTER_F32, _jitter  # noqa: F401
 from gpx_torch.ops.chol import cholesky, forward_solve, tri_inverse_lower
@@ -146,14 +146,18 @@ def _generator(key, device):
 
 def _train(key, params, z, x, state, noise0, elbo, *, batch_size: int,
            steps: int, learning_rate: float, train_inducing: bool,
-           train_hyper: bool, train_noise: bool):
+           train_hyper: bool, train_noise: bool, mesh=None,
+           mesh_axis: str = "data"):
     """``steps`` Adam steps on ``elbo(params, z, state, idx, noise)``, the
     ELBO of the minibatch of rows ``idx``, over the variational state, the
     hyperparameters (through their bijectors, in unconstrained space), the
     inducing locations and the noise (on the log scale), as far as each is
     trained. Each step draws its minibatch by :func:`_batch_indices` from
     ``key`` (an int seed or a ``torch.Generator``). The trace holds each
-    step's ELBO at its start, read to the host at the end only.
+    step's ELBO at its start, read to the host at the end only. With a
+    mesh, ``x`` and ``elbo`` are this rank's shard's, and each step's
+    gradients and ELBO are averaged over ``mesh[mesh_axis]`` (one ``psum``
+    a step) before the update, which every rank then takes alike.
 
     Returns ``(params, z, state, noise, elbo_trace)``, detached."""
     gen = _generator(key, x.device)
@@ -184,6 +188,8 @@ def _train(key, params, z, x, state, noise0, elbo, *, batch_size: int,
             p, s2 = current()
             loss = -elbo(p, zz, st, idx, s2)
             loss.backward()
+        if mesh is not None:
+            loss = _average(mesh, mesh_axis, tensors, loss.detach())
         opt.step()
         trace.append(-loss.detach())
     with torch.no_grad():
@@ -191,6 +197,21 @@ def _train(key, params, z, x, state, noise0, elbo, *, batch_size: int,
     return (unflatten(p, [t.detach() for t in leaves(p)]), zz.detach(),
             type(state)(*(t.detach() for t in st)), s2.detach(),
             torch.stack(trace) if trace else x.new_zeros((0,)))
+
+
+def _average(mesh, mesh_axis, tensors, loss):
+    """Each tensor's gradient and ``loss`` replaced by their means over
+    ``mesh[mesh_axis]`` (the JAX package's ``pmean`` of the ranks'
+    likelihood terms: the KL, replicated, passes through unchanged);
+    returns the mean loss."""
+    from gpx_torch.parallel import comm
+
+    d = comm.axis_size(mesh, mesh_axis)
+    sums = comm.psum_each([torch.zeros_like(t) if t.grad is None else t.grad
+                           for t in tensors] + [loss], mesh, mesh_axis)
+    for t, g in zip(tensors, sums):
+        t.grad = g / d
+    return sums[-1] / d
 
 
 def train(key, params: Parameters, z, x, y, *, noise, batch_size: int = 256,
@@ -204,13 +225,35 @@ def train(key, params: Parameters, z, x, y, *, noise, batch_size: int = 256,
     scale). ``key`` is an int seed or a ``torch.Generator`` for the
     minibatch draws.
 
+    ``mesh=`` trains data-parallel over ``mesh[mesh_axis]``: every rank
+    passes the whole ``x`` and ``y`` and works on its block of rows, draws
+    ``batch_size / d`` points of it a step (``batch_size`` is the global
+    batch), and the ranks' likelihood estimates are averaged (one ``psum``
+    a step: the variational state, the hyperparameters and the optimizer
+    state stay replicated). Each rank's ``(N / B_loc) sum_local`` estimates
+    the full-data likelihood from its shard, so the average is the
+    single-device estimator of the union of the ranks' minibatches.
+
     Returns ``(params, z, state, noise, elbo_trace)``."""
-    _no_mesh(mesh)
     full_fp32()
     x = as_locations(x)
     z = as_locations(z)
     y = as_tensor(y, device=x.device)
     n_total = x.shape[0]
+    if mesh is not None:
+        from gpx_torch._device import seeds
+        from gpx_torch.parallel import comm
+
+        d = comm.axis_size(mesh, mesh_axis)
+        if n_total % d or batch_size % d:
+            raise ValueError(
+                f"data-parallel SVGP needs n ({n_total}) and batch_size "
+                f"({batch_size}) divisible by the {d}-device mesh axis")
+        my = comm.axis_index(mesh, mesh_axis)
+        n_loc = n_total // d
+        x, y = x[my * n_loc:(my + 1) * n_loc], y[my * n_loc:(my + 1) * n_loc]
+        key = seeds(key, d)[my]
+        batch_size //= d
 
     def elbo(p, zz, state, idx, s2):
         return elbo_minibatch(p, zz, state, x[idx], y[idx], n_total=n_total,
@@ -221,4 +264,5 @@ def train(key, params: Parameters, z, x, y, *, noise, batch_size: int = 256,
                   torch.as_tensor(noise, dtype=x.dtype, device=x.device),
                   elbo, batch_size=batch_size, steps=steps,
                   learning_rate=learning_rate, train_inducing=train_inducing,
-                  train_hyper=train_hyper, train_noise=train_noise)
+                  train_hyper=train_hyper, train_noise=train_noise,
+                  mesh=mesh, mesh_axis=mesh_axis)

@@ -21,25 +21,29 @@ _ARGS = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.P,
          _build.L, _build.P]
 
 
-def gram_reference(kernel, x, x2=None, nugget: float = 0.0):
+def gram_reference(kernel, x, x2=None, nugget: float = 0.0, center=None):
     """``k(r2(x, x2))`` (+ ``nugget * I`` when symmetric) in plain torch:
-    the kernel's arithmetic, at any type and for any kernel."""
+    the kernel's arithmetic, at any type and for any kernel. ``center``:
+    the ``(1, D)`` row the coordinates are centred on (default: ``x``'s
+    mean)."""
     x = as_locations(x)
-    r2 = sq_distances(x, x2, exact=x.shape[-1] > 8 and has_white(kernel))
+    r2 = sq_distances(x, x2, exact=x.shape[-1] > 8 and has_white(kernel),
+                      center=center)
     k = kernel.evaluate_xx(x, x if x2 is None else as_locations(x2), r2)
     if x2 is None and nugget:
         k = k + nugget * torch.eye(k.shape[-1], dtype=k.dtype, device=k.device)
     return k
 
 
-def gram_cuda(kernel, x, x2=None, *, nugget: float = 0.0):
-    """Gram matrix through the CUDA kernel (float32, term-table kernels).
-    On CPU tensors this is :func:`gram_reference`."""
+def gram_cuda(kernel, x, x2=None, *, nugget: float = 0.0, center=None):
+    """Gram matrix through the CUDA kernel (float32, term-table kernels),
+    its coordinates centred on ``center`` (default: ``x``'s mean). On CPU
+    tensors this is :func:`gram_reference`."""
     x = as_locations(x)
     if x2 is not None:
         x2 = as_locations(x2)
     if x.device.type == "cpu":
-        return gram_reference(kernel, x, x2, nugget)
+        return gram_reference(kernel, x, x2, nugget, center)
     if not kernel.cuda_supported:
         raise ValueError(f"{type(kernel).__name__} has no CUDA device function")
     _build.require(x, "x", ndim=2, device=x.device)
@@ -47,14 +51,15 @@ def gram_cuda(kernel, x, x2=None, *, nugget: float = 0.0):
         _build.require(x2, "x2", ndim=2, device=x.device)
         if x2.shape[1] != x.shape[1]:
             raise ValueError(f"x2 has D={x2.shape[1]}, x has D={x.shape[1]}")
-    return _Gram.apply(kernel, float(nugget), x, x2, *leaves(kernel))
+    return _Gram.apply(kernel, float(nugget), center, x, x2, *leaves(kernel))
 
 
 gram_cuda.launches = 0
 
 
-def _launch(kernel, x, x2, nugget):
-    center = x.mean(dim=0, keepdim=True)
+def _launch(kernel, x, x2, nugget, center):
+    if center is None:
+        center = x.mean(dim=0, keepdim=True)
     x1c = (x - center).contiguous()
     x2c = x1c if x2 is None else (x2 - center).contiguous()
     n, d = x1c.shape
@@ -73,10 +78,10 @@ def _launch(kernel, x, x2, nugget):
 
 class _Gram(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, kernel, nugget, x, x2, *kernel_leaves):
-        ctx.kernel, ctx.nugget = kernel, nugget
+    def forward(ctx, kernel, nugget, center, x, x2, *kernel_leaves):
+        ctx.kernel, ctx.nugget, ctx.center = kernel, nugget, center
         ctx.save_for_backward(x, x2, *kernel_leaves)
-        return _launch(kernel, x, x2, nugget)
+        return _launch(kernel, x, x2, nugget, center)
 
     @staticmethod
     def backward(ctx, g):
@@ -86,9 +91,9 @@ class _Gram(torch.autograd.Function):
             xs = [t.detach().requires_grad_() if t is not None else None
                   for t in (x, x2)]
             k = gram_reference(unflatten(ctx.kernel, kl), xs[0], xs[1],
-                               ctx.nugget)
+                               ctx.nugget, ctx.center)
             wrt = [t for t in (*xs, *kl) if t is not None]
             grads = iter(torch.autograd.grad(k, wrt, g, allow_unused=True))
         gx = next(grads)
         gx2 = next(grads) if x2 is not None else None
-        return (None, None, gx, gx2, *grads)
+        return (None, None, None, gx, gx2, *grads)

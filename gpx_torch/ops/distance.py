@@ -39,11 +39,13 @@ def check_xy(x, y, what: str = "y"):
 _BLOCK_ENTRIES = 1 << 27
 
 
-def sq_distances(x1, x2=None, *, exact: bool = False):
+def sq_distances(x1, x2=None, *, exact: bool = False, center=None):
     """Pairwise squared Euclidean distances.
 
     The points are centred first (distances are translation-invariant, and
-    centring keeps coordinate rounding out of r2). For ``D <= 8`` or
+    centring keeps coordinate rounding out of r2), on ``x1``'s mean or on
+    ``center`` (a ``(1, D)`` row): a block of rows of a larger set's
+    distances centred as that set is has exactly its zeros. For ``D <= 8`` or
     ``exact=True`` the broadcast-difference form is used, which keeps
     coincident points at exactly 0 (White's ``r2 == 0``), in blocks of
     rows where the differences would exceed ``_BLOCK_ENTRIES``; otherwise
@@ -53,7 +55,9 @@ def sq_distances(x1, x2=None, *, exact: bool = False):
     x1 = as_locations(x1)
     symmetric = x2 is None
     x2 = x1 if symmetric else as_locations(x2)
-    center = x1.mean(dim=0, keepdim=True).detach()
+    if center is None:
+        center = x1.mean(dim=0, keepdim=True)
+    center = center.detach()
     x1 = x1 - center
     x2 = x1 if symmetric else x2 - center
     if exact or x1.shape[-1] <= 8:

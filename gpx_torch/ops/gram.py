@@ -18,12 +18,20 @@ from gpx_torch.ops.cuda_gram import gram_cuda, gram_reference
 from gpx_torch.ops.distance import as_locations
 
 
-def gram(kernel, x, x2=None, *, nugget: float = 0.0, method: str = "auto"):
+def gram(kernel, x, x2=None, *, nugget: float = 0.0, method: str = "auto",
+         center_of=None):
     """Covariance matrix ``K[i, j] = k(x[i], x2[j])``; symmetric
-    (``x2 is None``) adds ``nugget * I``."""
+    (``x2 is None``) adds ``nugget * I``. The coordinates are centred on
+    the mean of ``x``, or of ``center_of``: a block of the Gram of a larger
+    set, centred on that set, holds that Gram's entries, with White where
+    its r2 is exactly 0."""
     x = as_locations(x)
     if x2 is not None:
         x2 = as_locations(x2)
+    center = None
+    if center_of is not None:
+        center = unwrap_ard(kernel, as_locations(center_of))[1].mean(
+            dim=0, keepdim=True).detach()
     kernel, x, x2 = unwrap_ard(kernel, x, x2)
     if method == "auto":
         method = "pallas" if uses_cuda_kernel(kernel, x) else "xla"
@@ -33,10 +41,10 @@ def gram(kernel, x, x2=None, *, nugget: float = 0.0, method: str = "auto"):
         if not kernel.pallas_safe:
             raise ValueError("kernel is not pallas-safe (e.g. general-nu "
                              "Matern); use method='xla'")
-        return gram_cuda(kernel, x, x2, nugget=nugget)
+        return gram_cuda(kernel, x, x2, nugget=nugget, center=center)
     if method != "xla":
         raise ValueError(f"unknown gram method: {method}")
-    return gram_reference(kernel, x, x2, nugget)
+    return gram_reference(kernel, x, x2, nugget, center)
 
 
 def uses_cuda_kernel(kernel, x) -> bool:

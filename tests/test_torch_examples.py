@@ -142,6 +142,33 @@ def test_large_n_dense_matches_gpx(monkeypatch, tmp_path):
     assert got["mean"].shape == got["variance"].shape == (1024,)
 
 
+@pytest.fixture
+def gloo_world_of_one(tmp_path):
+    """A gloo process group of this process alone, destroyed at teardown so
+    that no later test of the worker inherits it."""
+    import torch.distributed as dist
+
+    from gpx_torch.parallel.mesh import init_process_group
+
+    init_process_group(0, 1, str(tmp_path), backend="gloo")
+    yield
+    dist.destroy_process_group()
+
+
+def test_temperature_kriging_sharded_matches_fit(monkeypatch, tmp_path,
+                                                 gloo_world_of_one):
+    """temperature_kriging krigs through ``sharded_predict`` over the
+    world's mesh (here one gloo rank): its grid mean and variance against
+    the port's single-device ``gp.fit`` on the same data and parameters."""
+    mod = _example("temperature_kriging", monkeypatch, tmp_path)
+    out = mod.main(["8", "--nx", "6", "--ny", "6", *CPU])
+    fitted = mod.fitted_params(out["post_mean"], "cpu", out["resid"].dtype)
+    want = tgp.fit(fitted, out["locs"], out["resid"], out["grid"])
+    torch.testing.assert_close(out["mean"], want.mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out["variance"], want.variance, rtol=1e-5,
+                               atol=1e-6)
+
+
 def test_posterior_predictive_resumes_a_gpx_chain(monkeypatch, tmp_path):
     """``posterior-predictive`` reads a ``gpmcmc_0.csv`` that gpx.io wrote
     from numpy draws: the thinned rows bitwise, and 20 finite curves."""

@@ -28,6 +28,7 @@ from gpx_torch.infer import dual_averaging as tda
 from gpx_torch.infer import hmc as thmc
 from gpx_torch.infer import mcmc, sample_hmc, sample_hmc_log_density
 from gpx_torch.models import gp
+from tests.torch_parallel_ranks import one_rank_mesh
 
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -373,8 +374,11 @@ def test_sample_hmc_argument_checks():
         run(chunk_iters=0)
     with pytest.raises(ValueError, match="combine it with neither"):
         run(mesh=object(), analytic_gradients=True)
-    with pytest.raises(NotImplementedError):
-        run(mesh=object())
+    # mesh= (a one-rank gloo mesh): the same chain as without it
+    with one_rank_mesh() as mesh:
+        got = run(mesh=mesh, eps=0.1, l=3, panel=24)
+    np.testing.assert_allclose(got.flat.numpy(), run(eps=0.1, l=3).flat.numpy(),
+                               rtol=1e-9)
     with pytest.raises(ValueError, match="nugget-escalation"):
         mcmc._gp_log_density(x, y, log_prior, 1e-3, safe=True,
                              analytic_gradients=True)

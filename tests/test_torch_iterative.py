@@ -23,6 +23,7 @@ from gpx_torch.convert import params_from_numpy
 from gpx_torch.models import gp_iterative as gi
 from gpx_torch.ops import matvec as tmv
 from gpx_torch.ops.cuda_matvec import _cross_matvec_torch, _gram_matvec_torch
+from tests.torch_parallel_ranks import one_rank_mesh
 
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -342,8 +343,9 @@ def test_fit_iterative_matches_gpx(ref, rank, variance):
 
 def test_entry_points_public_and_scope(ref):
     """The public logML draws from a generator (on any device) and repeats
-    with the same seed; a Plane mean gets its gradient; mesh= is not
-    ported; numpy input goes to the card, which raises without one."""
+    with the same seed; a Plane mean gets its gradient; mesh= (a one-rank
+    gloo mesh here) gives the same estimate and posterior; numpy input goes
+    to the card, which raises without one."""
     d, _, kt, _ = ref
     x, y = _t(d["x"])[:60], _t(d["y"])[:60]
     tp = gt.Parameters(mean=gt.plane([0.1, -0.2], **F64), kernel=kt)
@@ -358,10 +360,19 @@ def test_entry_points_public_and_scope(ref):
     assert tparams.names(a.grads) == tparams.names(tp)
     assert all(torch.equal(g, h) for g, h in zip(tparams.leaves(a.grads),
                                                   tparams.leaves(b.grads)))
-    with pytest.raises(NotImplementedError):
-        gi.logml_value_and_grad_iterative(tp, x, y, torch.Generator(), mesh=object())
-    with pytest.raises(NotImplementedError):
-        gi.fit_iterative(tp, x, y, x, mesh=object())
+    with one_rank_mesh() as mesh:
+        c = gi.logml_value_and_grad_iterative(
+            tp, x, y, torch.Generator().manual_seed(3), n_probes=4,
+            lanczos_iters=10, precond_rank=8, mesh=mesh)
+        # solved to round-off, so that both stop at the same solution
+        fits = [gi.fit_iterative(tp, x, y, x, cg_tol=1e-12, mesh=m)
+                for m in (mesh, None)]
+    for got, want in zip([c.value, *tparams.leaves(c.grads)],
+                         [a.value, *tparams.leaves(a.grads)]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-9)
+    for got, want in zip(fits[0][1:3], fits[1][1:3]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-9,
+                                   atol=1e-12)
     with pytest.raises(ValueError):
         gi.fit_iterative(tp, x, y, x, variance="diag")
     if not torch.cuda.is_available():

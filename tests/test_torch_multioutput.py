@@ -28,6 +28,7 @@ from gpx_torch import params as tparams
 from gpx_torch.convert import params_from_numpy
 from gpx_torch.kernels import Kernel
 from gpx_torch.models import gridgp, multioutput, multioutput_iterative
+from tests.torch_parallel_ranks import one_rank_mesh
 
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -530,7 +531,8 @@ def test_grid_draws(ref, monkeypatch):
 
 
 def test_grid_optimize_and_mh(ref):
-    """L-BFGS to gpx's stationary point; MH runs with finite draws."""
+    """L-BFGS to gpx's stationary point; MH runs with finite draws; the
+    logML with mesh= (a one-rank gloo mesh) is the logML."""
     d, _, _, _, tp = ref
     axes, Y = [_t(d["a1"]), _t(d["a2"])], _t(d["Yg"])
     _lbfgs_optimum(ref, gridgp.optimize(tp["grid"], axes, Y, steps=30),
@@ -538,8 +540,13 @@ def test_grid_optimize_and_mh(ref):
     post = gridgp.sample_mh(0, axes, Y, tp["grid"], lambda p: 0.0, 4,
                             n_chains=1)
     assert torch.isfinite(post.flat).all() and post.flat.shape[:2] == (1, 4)
-    with pytest.raises(NotImplementedError):
-        gridgp.log_marginal_likelihood(tp["grid"], axes, Y, mesh=object())
+    with one_rank_mesh() as mesh:
+        sharded = gridgp.log_marginal_likelihood(tp["grid"], axes, Y,
+                                                 mesh=mesh)
+    np.testing.assert_allclose(
+        float(sharded), float(gridgp.log_marginal_likelihood(tp["grid"],
+                                                             axes, Y)),
+        rtol=1e-12)
 
 
 def test_failed_eigh_is_nan_and_size1_stride_passes():

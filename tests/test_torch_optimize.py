@@ -24,6 +24,8 @@ from gpx_torch.models.optimize import (
     optimize, optimize_log_density, stochastic_log_density_vjp,
 )
 
+from tests.torch_parallel_ranks import one_rank_mesh
+
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
 N = 48
@@ -317,10 +319,19 @@ def test_argument_checks(case):
         optimize(init, x, y, method="hybrid")
     with pytest.raises(ValueError, match="adam"):
         optimize(init, x, y, method="iterative")
-    for method in ("analytic", "iterative"):
-        with pytest.raises(NotImplementedError):
-            optimize(init, x, y, method=method, optimizer="adam",
-                     mesh=object())
+    # mesh= (a one-rank gloo mesh): the distributed likelihood takes the
+    # steps autograd through the Cholesky takes; the iterative route's
+    # row-sharded matvec the steps of its single-device one
+    adam = dict(optimizer="adam", steps=3, key=2)
+    with one_rank_mesh() as mesh:
+        got = [optimize(init, x, y, method=m, mesh=mesh, panel=N, **adam)
+               for m in ("analytic", "iterative")]
+    want = [optimize(init, x, y, method=m, **adam)
+            for m in ("autodiff", "iterative")]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(tparams.to_array(g.params).numpy(),
+                                   tparams.to_array(w.params).numpy(),
+                                   rtol=1e-9)
     with pytest.raises(ValueError, match="step_keys"):
         optimize_log_density(init.kernel, lambda k: k.h, step_keys=[0, 1])
     with pytest.raises(ValueError, match="unknown optimizer"):

@@ -28,6 +28,7 @@ from gpx_torch.infer import (
     sample_mh, sample_mh_log_density, sample_mh_within_gibbs, sample_nuts,
     sample_nuts_log_density,
 )
+from tests.torch_parallel_ranks import one_rank_mesh
 
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -298,9 +299,17 @@ def test_sampler_argument_checks():
     with pytest.raises(ValueError, match="requires analytic_gradients"):
         sample_nuts(0, x, y, truth, _log_prior, 2, fast_warmup=True,
                     n_chains=1)
-    for fn in (sample_mh, sample_nuts, sample_ehmc):
-        with pytest.raises(NotImplementedError):
-            fn(0, x, y, truth, _log_prior, 2, mesh=object())
+    # mesh= (a one-rank gloo mesh): the same chains as without it
+    small = {sample_mh: dict(n_chains=1),
+             sample_nuts: dict(n_chains=1, eps=0.1, max_depth=3),
+             sample_ehmc: dict(n_chains=1, warmup_iters=3, k=4, l0=3)}
+    with one_rank_mesh() as mesh:
+        got = [fn(0, x, y, truth, _log_prior, 2, mesh=mesh, panel=16, **kw)
+               for fn, kw in small.items()]
+    for g, (fn, kw) in zip(got, small.items()):
+        np.testing.assert_allclose(
+            g.flat.numpy(), fn(0, x, y, truth, _log_prior, 2, **kw).flat.numpy(),
+            rtol=1e-9)
     with pytest.raises(ValueError, match="combine it with neither"):
         sample_mh(0, x, y, truth, _log_prior, 2, safe=True, mesh=object())
     # safe=True: the nugget-escalation route rejects what it cannot factor

@@ -30,6 +30,7 @@ from gpx.models import svgp_mo as jmo
 from gpx_torch import params as tparams
 from gpx_torch.convert import params_from_numpy
 from gpx_torch.models import gp, sparse, svgp, svgp_mo
+from tests.torch_parallel_ranks import one_rank_mesh
 
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -377,9 +378,13 @@ def test_svgp_train_matches_optax_step_for_step(ref, monkeypatch):
                      noise=NOISE, batch_size=B, steps=STEPS, learning_rate=LR,
                      train_noise=True)
     _hold_trajectory(res, o["trace"][0], o["trained"][0], _jparams())
-    with pytest.raises(NotImplementedError):
-        svgp.train(0, _tparams(), _t(d["z"]), _t(d["x"]), _t(d["y"]),
-                   noise=NOISE, steps=1, mesh=object())
+    # data-parallel over a one-rank gloo mesh: the same trajectory
+    _patch_indices(monkeypatch, idx)
+    with one_rank_mesh() as mesh:
+        res = svgp.train(0, _tparams(), _t(d["z"]), _t(d["x"]), _t(d["y"]),
+                         noise=NOISE, batch_size=B, steps=STEPS,
+                         learning_rate=LR, train_noise=True, mesh=mesh)
+    _hold_trajectory(res, o["trace"][0], o["trained"][0], _jparams())
 
 
 def test_svgp_mo_elbo_minibatch_and_gradient(ref):

@@ -31,7 +31,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    expansion) against float64, the ARD leg at D = 3 in both gradient
    kernels (Ard(F3) among them), F3's probe kernel at s = 64, each
    family's times beside SE + White's, and the ARD leg's cost at D = 3
-   and 16;
+   and 16; and trees past the old 8-row term table (``_wide_trees``): a
+   Product of Sums of 24 rows and a sum of six quasi-periodic components
+   (13 rows, 31 hyperparameters) on the Gram, both gradient kernels and
+   the ARD leg, a 72-row tree on the Gram and the gradient at n = 4096,
+   a tree past the table's 256 rows raising before any launch, and each
+   tree's times beside SE + White's and F3's;
 3. the end-to-end bench case (numpy seed 0, x ~ U(-10, 10) of shape
    (16384, 1), y ~ N(0, 1), SE(3.0, 5.5) + White(0.5), float32) through
    ``gp.logml_value_and_grad``, held against the non-fused route run in
@@ -43,25 +48,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (``phase_families_e2e``) F1, SE(2, 3) * Matern(1, 5/2, 4) + White(0.1),
    F2, Ard(Matern(2, 5/2, 1) + White(0.25)) on D = 3, and F3 through the
    exact path on the same data, F2 and F3 through the hybrid, a Product
-   of Sums past the term table (the torch.linalg route; the hybrid
-   raises), and a Gram that is not positive definite (NaN on both exact
-   routes, -inf when safe);
+   of Sums of 24 rows (``_past_table``) on the fused route and the
+   hybrid, held against float64 computed in row blocks, and a Gram that
+   is not positive definite (NaN on both exact routes, -inf when safe);
 3b. prediction (``phase_predict``, BASELINE config 5): ``gp.fit`` from the
    bench data to the grid linspace(-10, 10, 16384), first as drawn (its
-   one coincident pair), then with the pair merged, for SE + White and F3
-   on the fused route (launch counts, mean and variance against float64
-   beside the float32 torch.linalg route, ms per fit on both routes, the
+   one coincident pair), then with the pair merged, for SE + White, F3
+   and the 24-row Product of Sums on the fused route (launch counts, mean
+   and variance against float64 beside the float32 torch.linalg route,
+   ms per fit on both routes, the
    stages and the left_lower trmm against its bound), ``full_cov`` and
    ``posterior_draw`` at M = 1024, ``draw`` at N = 16,384;
 4. the matrix-free path (``phase_iterative``, the case of
    ``examples/large_n.py``): the two matvec kernels against float64 and
    against their plain TF32 versions (SE + White at R = 1, 8, 9, 256,
-   Matern 3/2 + White, a product, F3, D = 2, 12 and 20, a repeated call
-   bitwise; every family timed),
+   Matern 3/2 + White, a product, F3, the 24-row Product of Sums, D = 2,
+   12 and 20, a repeated call bitwise; every family timed),
    ``gp_iterative.logml_value_and_grad_iterative`` at N = 32,768
    (three seeds) against the dense float64 logML and against the same
-   estimator in float64, one Matern 3/2 + White eval and one F3 eval
-   likewise,
+   estimator in float64, one Matern 3/2 + White eval, one F3 eval and
+   one eval of the 24-row Product of Sums + White likewise,
    ``fit_iterative`` against a dense float64 posterior, one eval at
    N = 131,072 with its memory, launch counts, stage times and ms/eval;
 5. the sampler slice (``phase_sampler``): the 2-pass legs (``fast=True``)
@@ -169,7 +175,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    peak memory and ms/eval; on a 2 x 2
    mesh ``sample_mh_2d`` at N = 16,384 and ``svgp.train(mesh=)`` against
    the single card on the same global minibatches; then ``dryrun_multichip(4)``;
-11. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
+11. the port's documentation (``phase_docs``): every ``docs_torch/`` page's
+   blocks on the card as written, each ending with its own checks and
+   every top-level floating tensor finite, with its seconds and kernel
+   launches; multi_chip.md on four ranks sharing the card over gloo;
+12. a ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
     python3 chip_smoke.py --no-iterative
 
@@ -221,6 +231,10 @@ runs phase 1 and phase 9 only, with no ``kernels`` or ``ok`` line.
     python3 chip_smoke.py --parallel-only
 
 runs phase 1 and phase 10 only, with no ``kernels`` or ``ok`` line.
+
+    python3 chip_smoke.py --docs-only
+
+runs phase 1 and phase 11 only, with no ``kernels`` or ``ok`` line.
 
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
@@ -799,7 +813,7 @@ FAMILY_ULPS = 16.0
 SFU_PER_ENTRY = {"se+white": 1, "matern12+white": 2, "matern32+white": 2,
                  "matern52+white": 2, "matern72+white": 2, "rq+white": 2,
                  "periodic+white": 2, "se*periodic+white": 3,
-                 "(se+matern32)*periodic+white": 4}
+                 "(se+matern32)*periodic+white": 4, "past_table": 7}
 ELL3 = [0.7, 2.3, 1.4]
 F3 = "(se+matern32)*periodic+white"
 
@@ -815,13 +829,62 @@ def _f3(gt, dtype=None):
 
 
 def _past_table(gt, dtype=None):
-    """A Product of Sums past the term table: 8 products of 3 factors, 24
-    rows against the table's 8."""
+    """A Product of Sums past the old 8-row term table: 8 products of 3
+    factors, 24 rows, 13 hyperparameters."""
     kw = {"device": "cuda", "dtype": dtype}
     return ((gt.se(2.0, 3.0, **kw) + gt.matern(1.0, 1.5, 2.0, **kw))
             * (gt.periodic(1.0, 2.5, 1.5, **kw)
                + gt.rational_quadratic(1.0, 0.7, 2.0, **kw))
             * (gt.se(1.0, 4.0, **kw) + gt.white(0.1, **kw)))
+
+
+def _past_table_noise(gt, dtype=None):
+    """_past_table + White(0.5): 25 rows. _past_table's own White sits in
+    a product, so split_noise finds no noise floor for the iterative
+    path's Woodbury preconditioner; on large_n's data its float32 CG ran
+    1000 iterations unconverged (measured on one H100, 57 s)."""
+    return _past_table(gt, dtype) + gt.white(0.5, device="cuda", dtype=dtype)
+
+
+QP = 6  # _quasi_periodic's components
+
+
+def _quasi_periodic(gt, dtype=None):
+    """A sum of QP = 6 quasi-periodic components SE_q * Periodic_q, periods
+    1.5 ... 4, plus White(0.1): 13 rows, 31 hyperparameters."""
+    kw = {"device": "cuda", "dtype": dtype}
+    out = gt.white(0.1, **kw)
+    for q in range(QP):
+        out = (gt.se(0.5 + 0.1 * q, 3.0 + q, **kw)
+               * gt.periodic(1.0, 1.5 + 0.5 * q, 1.2 + 0.1 * q, **kw)) + out
+    return out
+
+
+def _wide72(gt, dtype=None):
+    """(SE + M3/2 + RQ + Per) (SE + Per + M5/2) (SE + White): 24 products of
+    3 factors, 72 rows, 20 hyperparameters."""
+    kw = {"device": "cuda", "dtype": dtype}
+    return gt.Product((
+        gt.se(2.0, 3.0, **kw) + gt.matern(1.0, 1.5, 2.0, **kw)
+        + gt.rational_quadratic(0.8, 0.7, 2.0, **kw)
+        + gt.periodic(1.0, 2.5, 1.5, **kw),
+        gt.se(1.5, 2.0, **kw) + gt.periodic(0.9, 3.1, 1.4, **kw)
+        + gt.matern(1.1, 2.5, 3.0, **kw),
+        gt.se(1.0, 4.0, **kw) + gt.white(0.1, **kw)))
+
+
+def _sfu_per_entry(gt, kern) -> float:
+    """Special-function operations a Gram entry needs at least: an
+    exponential per leaf but White, a logarithm more for RQ, and one square
+    root where any leaf takes the distance (as SFU_PER_ENTRY counts)."""
+    def walk(k):
+        return ([t for c in k.kernels for t in walk(c)]
+                if isinstance(k, (gt.Sum, gt.Product)) else [k])
+    leaves = walk(kern)
+    exps = sum(not isinstance(t, gt.White) for t in leaves)
+    logs = sum(isinstance(t, gt.RationalQuadratic) for t in leaves)
+    root = any(isinstance(t, (gt.Matern, gt.Periodic)) for t in leaves)
+    return float(exps + logs + root)
 
 
 def _families(gt, dtype=None):
@@ -857,10 +920,13 @@ def _hold_gram(torch, gt, label, kern, x, nugget=1e-3, x2=None,
     k64, x64 = _f64_kernel(gt, kern), x.double()
     x2_64 = None if x2 is None else x2.double()
     want = cuda_gram.gram_reference(k64, x64, x2_64, nugget)
-    r2 = sq_distances(x64, x2_64)
-    # the smallest normal f32 as a floor: f32 entries below it underflow
-    scale = (want.abs() + 2.0 * r2 * term_dr2(k64, r2, absolute=True)
-             + 2.0 ** -126)
+    # the smallest normal f32 as a floor: f32 entries below it underflow;
+    # in row blocks (a wide tree's expanded terms take memory per entry)
+    scale = want.abs() + 2.0 ** -126
+    c, other = x64.mean(dim=0, keepdim=True), x64 if x2 is None else x2_64
+    for i in range(0, x.shape[0], 1024):
+        r2 = sq_distances(x64[i:i + 1024], other, center=c)
+        scale[i:i + 1024] += 2.0 * r2 * term_dr2(k64, r2, absolute=True)
     del r2
     shape = (f"n={x.shape[0]}" if x2 is None
              else f"{x.shape[0]} x {x2.shape[0]}")
@@ -924,6 +990,8 @@ def phase_families(torch, gt):
               f"{gram_bound[0]:.3f} ms, {gram_bound[1]}); logml_kernel_grads "
               f"{grad:.3f} ms; logml_probe_grads s=64 {probe:.3f} ms", flush=True)
     _f3_ard(torch, gt, x, u3, gen)
+    out["wide_trees"] = _wide_trees(torch, gt, x, u3, gen, alpha16, m16, z16,
+                                    out)
     # the ARD leg's cost: D more block sums per 64^2 tile
     kern = _families(gt)["matern52+white"]
     for d in (3, 16):
@@ -972,6 +1040,111 @@ def _f3_ard(torch, gt, x, u3, gen) -> None:
                 witness=True)
     _hold_probe(torch, gt, f3, u3, alpha, m.T @ (m @ z), z, ard=True,
                 label=f"ard({F3}) ", witness=True)
+
+
+def _wide_trees(torch, gt, x, u3, gen, alpha16, m16, z16, families):
+    """Trees past the old 8-row term table on the Gram and both gradient
+    kernels: _past_table (24 rows) and _quasi_periodic (13 rows, 31
+    hyperparameters) as phase 2b holds every family (the Gram at n = 4096
+    on D = 1 and 3, logml_kernel_grads at n = 4096 and 4160, the probe
+    kernel at s = 64, each against float64 with the float32 plain version
+    as a second limit), _past_table's ARD leg in both gradient kernels at D
+    = 3 (L^-1 from Matern 5/2 + White, as _f3_ard), and _wide72 (72 rows)
+    on the Gram and logml_kernel_grads at n = 4096; a tree past the table's
+    256 rows raises, naming its size, with no launch; each tree's times at
+    N = 16,384 beside SE + White's and F3's."""
+    from gpx_torch.kernels import MAX_TERMS, expanded_size
+    from gpx_torch.ops import cuda_chol, cuda_gram, cuda_logml_grad
+
+    trees = {"past_table": _past_table(gt), "quasi_periodic": _quasi_periodic(gt),
+             "wide72": _wide72(gt)}
+    for name, kern in trees.items():
+        rows = expanded_size(kern)[1]
+        _hold_gram(torch, gt, f"{name} ({rows} rows)", kern, x[:4096])
+        if name != "wide72":
+            _hold_gram(torch, gt, f"{name} ({rows} rows)", kern, u3)
+        for n in (4096,) if name == "wide72" else (4096, 4160):
+            xs = x[:n].contiguous()
+            _, m = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, xs, nugget=1e-3))
+            alpha = torch.randn(n, generator=gen, device="cuda") * 0.1
+            _hold_grads(torch, gt, kern, xs, alpha, m, label=f"{name} ",
+                        witness=True)
+            if name != "wide72" and n == 4096:
+                z = _rademacher(torch, (4096, 64), gen)
+                _hold_probe(torch, gt, kern, xs, alpha, m.T @ (m @ z), z,
+                            label=f"{name} ", witness=True)
+            del m
+    kern = trees["past_table"]
+    _, m = cuda_chol.chol_inv(cuda_gram.gram_cuda(
+        _families(gt)["matern52+white"], u3, nugget=1e-3))
+    alpha = torch.randn(4096, generator=gen, device="cuda") * 0.1
+    z = _rademacher(torch, (4096, 64), gen)
+    _hold_grads(torch, gt, kern, u3, alpha, m, ard=True,
+                label="ard(past_table) ", witness=True)
+    _hold_probe(torch, gt, kern, u3, alpha, m.T @ (m @ z), z, ard=True,
+                label="ard(past_table) ", witness=True)
+    del m
+    # past the table: the gate raises before any launch
+    from gpx_torch.models import gp
+    from gpx_torch.ops.matvec import gram_matvec
+
+    beyond = gt.Sum([_f3(gt) for _ in range(MAX_TERMS // 5 + 1)])
+    counters = _all_kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    p = gt.Parameters(mean=gt.zero(), kernel=beyond)
+    xb, yb = x[:4096], x[:4096, 0]
+    for what, fn in (
+            ("gram", lambda: gp.gram_of(beyond, xb, 1e-3)),
+            ("exact logml", lambda: gp.logml_value_and_grad(p, xb, yb)),
+            ("hybrid logml", lambda: gp.logml_value_and_grad(
+                p, xb, yb, method="hybrid")),
+            ("gram_matvec", lambda: gram_matvec(beyond, xb, yb[:, None]))):
+        try:
+            fn()
+        except ValueError as e:
+            print(f"{expanded_size(beyond)[1]} rows, {what}: raises {e}",
+                  flush=True)
+            check(f"{expanded_size(beyond)[1]} factors" in str(e),
+                  "past the table: the message does not name the size")
+        else:
+            check(False, f"past the table: {what} did not raise")
+    check(not any(c.launches for c in counters.values()),
+          "past the table: a kernel launched")
+    out = {}
+    for name, kern in trees.items():
+        gram = time_ms(torch, lambda: cuda_gram.gram_cuda(kern, x, nugget=1e-3))
+        grad = time_ms(torch, lambda: cuda_logml_grad.logml_kernel_grads(
+            kern, x, alpha16, m16), reps=3)
+        probe = time_ms(torch, lambda: cuda_logml_grad.logml_probe_grads(
+            kern, x, alpha16, z16, z16), reps=5)
+        sfu = _sfu_per_entry(gt, kern) * N_BENCH ** 2
+        gram_bound = bound_ms(nbytes=4.0 * N_BENCH * N_BENCH, exps=sfu)
+        # the K^-1 tiles' N^3 tensor-core flops in 3xTF32 (logml_grad.cu);
+        # the epilogue's values and derivatives on the lower triangle
+        grad_bound = bound_ms(tf32_flops=float(N_BENCH) ** 3, exps=sfu / 2)
+        # the probe product: 3 x 2 N^2 s in 3xTF32 on the lower triangle
+        probe_bound = bound_ms(tf32_flops=3.0 * N_BENCH ** 2 * 64, exps=sfu / 2)
+        out[name] = {"rows": expanded_size(kern)[1],
+                     "hyperparameters": len(gt.params.leaves(kern)),
+                     "gram_ms": gram, "gram_bound_ms": gram_bound[0],
+                     "gram_bound_by": gram_bound[1], "grad_ms": grad,
+                     "grad_bound_ms": grad_bound[0],
+                     "grad_bound_by": grad_bound[1], "probe_s64_ms": probe,
+                     "probe_bound_ms": probe_bound[0],
+                     "probe_bound_by": probe_bound[1]}
+        print(f"wide tree {name} ({out[name]['rows']} rows) n={N_BENCH}: gram "
+              f"{gram:.3f} ms (bound {gram_bound[0]:.3f}, {gram_bound[1]}); "
+              f"logml_kernel_grads {grad:.3f} ms (bound {grad_bound[0]:.3f}, "
+              f"{grad_bound[1]}); logml_probe_grads s=64 {probe:.3f} ms (bound "
+              f"{probe_bound[0]:.3f}, {probe_bound[1]}); beside se+white gram "
+              f"{families['se+white']['gram_ms']:.3f} grad "
+              f"{families['se+white']['grad_ms']:.3f} probe "
+              f"{families['se+white']['probe_s64_ms']:.3f} and {F3} gram "
+              f"{families[F3]['gram_ms']:.3f} grad {families[F3]['grad_ms']:.3f} "
+              f"probe {families[F3]['probe_s64_ms']:.3f}", flush=True)
+    torch.cuda.empty_cache()
+    return out
 
 
 def _chol_residuals(torch, k, l, m):
@@ -1264,15 +1437,22 @@ def _term_scales(torch, kernel, x, alpha, kinv, ard=False):
     from gpx_torch.ops.distance import sq_distances
     from gpx_torch.ops.terms import term_derivatives, term_dr2
 
-    w = 0.5 * (torch.outer(alpha, alpha) - kinv)
-    r2 = sq_distances(x)
-    out = [float(torch.sum((w * dk).abs())) for dk in term_derivatives(kernel, r2)]
-    out.append(float(torch.sum((kinv * kernel.evaluate_r2(r2)).abs())))
-    out.append(float(torch.sum(torch.diagonal(kinv).abs())))
-    if ard:
-        wk = w.abs() * term_dr2(kernel, r2, absolute=True)
-        out += [float(torch.sum(wk * (x[:, e, None] - x[None, :, e]) ** 2))
-                for e in range(x.shape[1])]
+    c = x.mean(dim=0, keepdim=True)
+    out = None
+    for i in range(0, x.shape[0], 512):  # row blocks: a wide tree's expanded
+        xb = x[i:i + 512]                # terms take memory per entry
+        w = 0.5 * (torch.outer(alpha[i:i + 512], alpha) - kinv[i:i + 512])
+        r2 = sq_distances(xb, x, center=c)
+        part = [float(torch.sum((w * dk).abs()))
+                for dk in term_derivatives(kernel, r2)]
+        part.append(float(torch.sum((kinv[i:i + 512]
+                                     * kernel.evaluate_r2(r2)).abs())))
+        part.append(float(torch.sum(torch.diagonal(kinv[i:i + 512], i).abs())))
+        if ard:
+            wk = w.abs() * term_dr2(kernel, r2, absolute=True)
+            part += [float(torch.sum(wk * (xb[:, e, None] - x[None, :, e]) ** 2))
+                     for e in range(x.shape[1])]
+        out = part if out is None else [a + b for a, b in zip(out, part)]
     return out
 
 
@@ -1372,12 +1552,52 @@ def _f64_result(torch, gt, gp, params, x, y):
     return _flat_result(gt, *gp.logml_value_and_grad(p64, x.double(), y.double()))
 
 
-def _exact_family(torch, gt, gp, label, params, x, y):
+def _blocked_logml(torch, gt, kern, x, y, nugget, block=1024):
+    """The exact logML and its kernel gradient by the torch.linalg
+    algorithm in the kernel's dtype (K by the plain Gram, its Cholesky
+    factor, alpha, W = (alpha alpha^T - K^-1) / 2 and W's contraction with
+    dK/dtheta by autograd), with K and its contraction built in row blocks:
+    the route's Gram VJP over the whole matrix holds every intermediate of
+    the tree at N^2 entries (tens of GB for a tree of 24 factors at N =
+    16,384). Returns [value, *kernel gradients]."""
+    from gpx_torch.ops.cuda_gram import gram_reference
+
+    dt = gt.params.leaves(kern)[0].dtype
+    xd, yd = x.to(dt), y.to(dt)
+    n, c = x.shape[0], xd.mean(dim=0, keepdim=True)
+    k = torch.empty((n, n), dtype=dt, device=x.device)
+    for i in range(0, n, block):
+        k[i:i + block] = gram_reference(kern, xd[i:i + block], xd, center=c)
+    k.diagonal().add_(nugget)
+    lmat = torch.linalg.cholesky(k)
+    del k
+    alpha = torch.cholesky_solve(yd[:, None], lmat)[:, 0]
+    value = (-0.5 * float(yd @ alpha) - float(torch.log(lmat.diagonal()).sum())
+             - 0.5 * n * math.log(2.0 * math.pi))
+    w = torch.cholesky_inverse(lmat)
+    del lmat
+    w.mul_(-0.5).addr_(alpha, alpha, alpha=0.5)
+    leaves = [t.detach().requires_grad_() for t in gt.params.leaves(kern)]
+    kl = gt.params.unflatten(kern, leaves)
+    grads = [0.0] * len(leaves)
+    with torch.enable_grad():
+        for i in range(0, n, block):
+            kb = gram_reference(kl, xd[i:i + block], xd, center=c)
+            g = torch.autograd.grad(torch.sum(w[i:i + block] * kb), leaves)
+            grads = [a + float(b) for a, b in zip(grads, g)]
+    del w
+    torch.cuda.empty_cache()
+    return [value] + grads
+
+
+def _exact_family(torch, gt, gp, label, params, x, y, blocked=False):
     """A family's exact path at N = 16,384 through gp.logml_value_and_grad:
     the fused route by its launch counts (1 Gram, 128 leaves, 1 gradient),
     each output against float64 (the non-fused route on the card), beside
     the float32 torch.linalg route's error (the route such a kernel took
-    before it had device functions), and both routes' ms/eval.
+    before it had device functions), and both routes' ms/eval. ``blocked``:
+    both by :func:`_blocked_logml` (a wide tree), the float32 route's time
+    not taken.
 
     Each output must meet the bench's f32 envelope (value 1e-4 relative,
     White 1e-5 relative, other gradients 1e-2 relative or 0.5 absolute) or
@@ -1394,16 +1614,23 @@ def _exact_family(torch, gt, gp, label, params, x, y):
           and launches["logml_probe_grads"] == 0,
           f"{label} did not take the fused route")
     got = _flat_result(gt, value, grads)
-    want = _f64_result(torch, gt, gp, params, x, y)
-    keep = gp.FUSED_MIN_N
-    gp.FUSED_MIN_N = x.shape[0] + 1
-    try:
-        check(not gp._fused_gate(params.kernel, x), "the route did not switch")
-        lin = _flat_result(gt, *gp.logml_value_and_grad(params, x, y))
-        lin_ms = time_ms(torch, lambda: gp.logml_value_and_grad(params, x, y),
-                         reps=3)
-    finally:
-        gp.FUSED_MIN_N = keep
+    if blocked:
+        want = _blocked_logml(torch, gt, _f64_kernel(gt, params.kernel), x, y,
+                              gp.LOGML_NUGGET)
+        lin = _blocked_logml(torch, gt, params.kernel, x, y, gp.LOGML_NUGGET)
+        lin_ms = math.nan
+    else:
+        want = _f64_result(torch, gt, gp, params, x, y)
+        keep = gp.FUSED_MIN_N
+        gp.FUSED_MIN_N = x.shape[0] + 1
+        try:
+            check(not gp._fused_gate(params.kernel, x),
+                  "the route did not switch")
+            lin = _flat_result(gt, *gp.logml_value_and_grad(params, x, y))
+            lin_ms = time_ms(torch, lambda: gp.logml_value_and_grad(
+                params, x, y), reps=3)
+        finally:
+            gp.FUSED_MIN_N = keep
     names = ["value"] + gt.params.names(params.kernel)
     kinds = ["value"] + _leaf_kinds(gt, params.kernel)
     worst = {}
@@ -1422,7 +1649,8 @@ def _exact_family(torch, gt, gp, label, params, x, y):
         worst[nm] = {"err": err, "rel": rel, "linalg_err": lin_err}
     eval_ms, ms = _median_ms(torch, lambda: gp.logml_value_and_grad(params, x, y))
     print(f"{label} ms/eval (median of 5, CUDA events): fused {eval_ms:.2f} "
-          f"{ms}; torch.linalg f32 {lin_ms:.2f}", flush=True)
+          f"{ms}; torch.linalg f32 {lin_ms:.2f}"
+          + (" (blocked oracle, not timed)" if blocked else ""), flush=True)
     return {"ms_per_eval": eval_ms, "linalg_ms_per_eval": lin_ms,
             "launches": launches, "errors": worst}, want
 
@@ -1434,8 +1662,8 @@ def phase_families_e2e(torch, gt):
     = 3 (the JAX package's test kernels), F3 (_f3, a Product of a Sum) on D
     = 1, exact (_exact_family); F2 and F3 also through method="hybrid" for
     three probe seeds against the exact float64, their errors recorded; a
-    Product of Sums past the term table (_past_table) on the torch.linalg
-    route, its hybrid raising."""
+    Product of Sums past the old 8-row term table (_past_table) on the
+    fused route and the hybrid likewise (_past_table_route)."""
     from gpx_torch.models import gp
 
     out = {}
@@ -1503,32 +1731,22 @@ def _family_hybrid(torch, gt, gp, label, params, x, y, want):
 
 
 def _past_table_route(torch, gt, gp, x, y):
-    """_past_table at n = 4096 (>= FUSED_MIN_N, so the kernel alone
-    decides): the exact path on the torch.linalg route (no Gram, leaf or
-    gradient kernel launched), finite; the hybrid raises
-    NotImplementedError naming the expansion's size."""
-    n = 4096
+    """_past_table (24 rows, past the old 8-row table) at N = 16,384 on
+    F3's data: the exact path on the fused route (_exact_family with the
+    blocked oracles; launch counts Gram 1, trmm 381, syrk_lower 127,
+    leaves 128, gradient 1), and method="hybrid" for three probe seeds
+    (_family_hybrid) against the same float64 result."""
     params = gt.Parameters(mean=gt.zero(), kernel=_past_table(gt))
-    check(not params.kernel.cuda_supported, "the table took 24 rows")
-    counters = _counters()
-    for c in counters.values():
-        c.launches = 0
-    value, grads = gp.logml_value_and_grad(params, x[:n], y[:n])
-    torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in counters.items()}
-    got = _flat_result(gt, value, grads)
-    print(f"past the table n={n}: launches {json.dumps(launches)}; value "
-          f"{got[0]:.8e}", flush=True)
-    check(not any(launches.values()), "past the table: a kernel launched")
-    check(all(math.isfinite(g) for g in got), "past the table: not finite")
-    try:
-        gp.logml_value_and_grad(params, x[:n], y[:n], method="hybrid")
-    except NotImplementedError as e:
-        print(f"past the table hybrid raises: {e}", flush=True)
-        check("24 factors" in str(e), "the message does not say why")
-    else:
-        check(False, "past the table: the hybrid did not raise")
-    return {"launches": launches, "value": got[0]}
+    out, want = _exact_family(torch, gt, gp, "past_table", params, x, y,
+                              blocked=True)
+    launches = out["launches"]
+    check(launches["trmm"] == 381 and launches["syrk_lower"] == 127
+          and launches["chol_inv_tile_off"] == 128,
+          "past_table: not chol_inv's launches at N = 16,384")
+    torch.cuda.empty_cache()
+    out["hybrid"] = _family_hybrid(torch, gt, gp, "past_table", params, x, y,
+                                   want)
+    return out
 
 
 def _not_spd(torch, gt, gp):
@@ -1972,8 +2190,9 @@ def phase_predict(torch, gt):
     = linspace(-10, 10, 16384). First fit on the data as drawn
     (_predict_as_drawn: its one coincident pair). Then on the same data
     with the pair merged (the second point dropped: N = 16,383, which the
-    fused route pads to 16,384), fit for SE(3.0, 5.5) + White(0.5) and F3
-    (_predict_case), and full_cov and posterior_draw at M = 1024
+    fused route pads to 16,384), fit for SE(3.0, 5.5) + White(0.5), F3 and
+    _past_table (_predict_case), and for the first two full_cov and
+    posterior_draw at M = 1024
     (_predict_cov); gp.draw at N = 16,384 on the data as drawn (its nugget,
     1e-3, is above the pair's rounding), held as mean + z L^T with the
     factor's backward error formed in float64."""
@@ -1991,10 +2210,13 @@ def phase_predict(torch, gt):
     out["n_merged"] = int(first.size)
     idx = torch.as_tensor(first, device="cuda")
     xu, yu = x[idx].contiguous(), y[idx].contiguous()
-    for label, kern in (("se+white", params.kernel), ("F3", _f3(gt))):
+    for label, kern in (("se+white", params.kernel), ("F3", _f3(gt)),
+                        ("past_table", _past_table(gt))):
         p = gt.Parameters(mean=gt.zero(), kernel=kern)
         out[label] = _predict_case(torch, gt, gp, label, p, xu, yu, xs)
-        out[label]["full_cov"] = _predict_cov(torch, gt, gp, label, p, xu, yu, xc)
+        if label != "past_table":
+            out[label]["full_cov"] = _predict_cov(torch, gt, gp, label, p, xu,
+                                                  yu, xc)
         torch.cuda.empty_cache()
     del xu, yu
     got = gp.draw(torch.Generator(device="cuda").manual_seed(6), params, x)
@@ -2073,7 +2295,7 @@ def _count(torch, fn):
 
 
 # Leaf terms of each family kernel (_families), for the matvec's FP32 bound
-TERMS = {"se*periodic+white": 3, F3: 5}
+TERMS = {"se*periodic+white": 3, F3: 5, "past_table": 24}
 
 
 def _matvec_bound(n1, n2, d, r, name="se+white"):
@@ -2237,23 +2459,15 @@ def _matvec_checks(torch, gt, records):
     gram_case(f"gram_matvec se*periodic+white n={N_RAGGED} d=1 r=9 (ragged)",
               xr[:, :1], torch.randn((N_RAGGED, 9), generator=gen, device="cuda"),
               kern=pk, k64=_f64_kernel(gt, pk))
-    # F3, a Product of a Sum (a leaf in two products of the expansion), at
-    # the path's width, and a Product of Sums past the table raising
-    fk = _f3(gt)
-    gram_case(f"gram_matvec {F3} n={N_IT} d=1 r=9", x,
-              torch.randn((N_IT, 9), generator=gen, device="cuda"), kern=fk,
-              k64=_f64_kernel(gt, fk))
-    cross_case(f"cross_matvec {F3} ({N_TEST}, {N_IT}) d=1 r=9", xs, x,
-               torch.randn((N_IT, 9), generator=gen, device="cuda"), kern=fk,
-               k64=_f64_kernel(gt, fk))
-    from gpx_torch.ops.matvec import gram_matvec
-    try:
-        gram_matvec(_past_table(gt), x[:1024],
-                    torch.ones((1024, 1), device="cuda"))
-    except NotImplementedError as e:
-        print(f"gram_matvec past the table raises: {e}", flush=True)
-    else:
-        check(False, "gram_matvec past the table did not raise")
+    # F3, a Product of a Sum (a leaf in two products of the expansion), and
+    # _past_table, a Product of Sums of 24 rows, at the path's width
+    for label, fk in ((F3, _f3(gt)), ("past_table", _past_table(gt))):
+        gram_case(f"gram_matvec {label} n={N_IT} d=1 r=9", x,
+                  torch.randn((N_IT, 9), generator=gen, device="cuda"),
+                  kern=fk, k64=_f64_kernel(gt, fk))
+        cross_case(f"cross_matvec {label} ({N_TEST}, {N_IT}) d=1 r=9", xs, x,
+                   torch.randn((N_IT, 9), generator=gen, device="cuda"),
+                   kern=fk, k64=_f64_kernel(gt, fk))
     torch.cuda.empty_cache()
 
     # times at the path's shapes: CG's width r = 9 (alpha + 8 probes);
@@ -2278,6 +2492,14 @@ def _matvec_checks(torch, gt, records):
     t["gram_matvec_bound_ms"] = {
         r: [_matvec_bound(N_IT, N_IT, 1, r)[0], _matvec_bound_fp32(N_IT, N_IT, r)[0]]
         for r in (1, 8, 9, 256)}
+    wide = _past_table(gt)
+    wide_ms = time_ms(torch, lambda: cm.gram_matvec_cuda(wide, xc, v, nugget=nug),
+                      reps=5)
+    wide_bound = _matvec_bound(N_IT, N_IT, 1, 9, "past_table")
+    t["gram_matvec_past_table_ms"] = {"ms": wide_ms, "bound_ms": wide_bound[0],
+                                      "bound_by": wide_bound[1]}
+    print(f"gram_matvec past_table (24 rows) n={N_IT} r=9: {wide_ms:.3f} ms "
+          f"(bound {wide_bound[0]:.3f} ms, {wide_bound[1]})", flush=True)
     times = t["gram_matvec_ms"]
     print(f"gram_matvec n={N_IT} d=1: kernel r=1 {times[1]:.3f} ms, r=8 "
           f"{times[8]:.3f} ms, r=9 {times[9]:.3f} ms, r=256 {times[256]:.3f} ms "
@@ -2343,6 +2565,14 @@ def _matvec_times(torch, gt, gen):
         fk = _families(gt)[F3]
         out["cross_matvec_f3_ms"] = time_ms(
             torch, lambda: cm.cross_matvec_cuda(fk, xsc, xc, alpha), reps=20)
+    # the outputs' bytes (digests) for SE + White and F3, so that two trees'
+    # runs compare bit for bit
+    out["sha256"] = {}
+    for name, fk in (("se+white", kern), (F3, _families(gt).get(F3))):
+        if fk is not None:
+            out["sha256"][name] = [
+                _digest(cm.gram_matvec_cuda(fk, xc, v, nugget=nug)),
+                _digest(cm.cross_matvec_cuda(fk, xsc, xc, v))]
     return out
 
 
@@ -2443,6 +2673,13 @@ def _gram_l1_only(torch):
     return fn
 
 
+def _digest(t) -> str:
+    """sha256 of a tensor's bytes, for bitwise comparisons between runs."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
 def phase_kernel_times(torch, gt):
     """``--kernel-times``: the probe kernel at N = 16,384 (SE + White at
     s = 1, 8, 64, 128; Matern 5/2 + White with ARD at D = 3, s = 64), the
@@ -2484,13 +2721,26 @@ def phase_kernel_times(torch, gt):
     # at N = 16,384 and its outputs in hex, so two trees' runs compare bit
     # for bit
     _, mg = cuda_chol.chol_inv(cuda_gram.gram_cuda(kern, x, nugget=1e-3))
+    f3 = _families(gt).get(F3)
     cases = {"se+white": (kern, x, False), "matern52+white ard d3": (mk, u3, True)}
+    if f3 is not None:
+        cases[F3] = (f3, x, False)
     out["grad_ms"], out["grad_outputs_hex"] = {}, {}
     for name, (gk, gx, ard) in cases.items():
         out["grad_ms"][name] = time_ms(torch, lambda: clg.logml_kernel_grads(
             gk, gx, alpha, mg, ard=ard), reps=5)
         out["grad_outputs_hex"][name] = [v.hex() for v in _outputs(
             gt, clg.logml_kernel_grads(gk, gx, alpha, mg, ard=ard))]
+    # the probe kernel's outputs and the Gram's bytes (a digest, n = 4096)
+    # for SE + White and F3, so that two trees' runs compare bit for bit
+    out["probe_outputs_hex"], out["gram_sha256"] = {}, {}
+    for name, gk in (("se+white", kern), (F3, f3)):
+        if gk is None:
+            continue
+        out["probe_outputs_hex"][name] = [v.hex() for v in _outputs(
+            gt, clg.logml_probe_grads(gk, x, alpha, u, z))]
+        out["gram_sha256"][name] = _digest(cuda_gram.gram_cuda(
+            gk, x[:4096], nugget=1e-3))
     for d in (1, 2):
         xd = torch.rand((N_BENCH, d), generator=gen, device="cuda") * 20.0 - 10.0
         for name, fk in _families(gt).items():
@@ -2548,11 +2798,12 @@ def _dense_gram64(torch, kernel, x, nugget, block=4096):
     return k
 
 
-def _dense_logml64(torch, gt, x, y, nugget, k64=None):
+def _dense_logml64(torch, gt, x, y, nugget, k64=None, block=4096):
     """The dense float64 logML, its kernel gradient (sum_ij W_ij dK_ij /
     dtheta with W = (alpha alpha^T - K^-1) / 2, by autograd of the Gram's
-    row blocks) and alpha = K^-1 y; K takes 8 GiB at N = 32,768. The
-    kernel is the example's SE + White unless ``k64`` is given."""
+    row blocks of ``block`` rows) and alpha = K^-1 y; K takes 8 GiB at N =
+    32,768. The kernel is the example's SE + White unless ``k64`` is
+    given."""
     from gpx_torch.ops.cuda_gram import gram_reference
 
     k64 = _iter_kernel(gt, torch.float64) if k64 is None else k64
@@ -2569,9 +2820,9 @@ def _dense_logml64(torch, gt, x, y, nugget, k64=None):
     kern = gt.params.unflatten(k64, leaves)
     grads = [0.0] * len(leaves)
     with torch.enable_grad():
-        for i in range(0, n, 4096):
-            kb = gram_reference(kern, x64[i:i + 4096], x64)
-            g = torch.autograd.grad(torch.sum(w[i:i + 4096] * kb), leaves)
+        for i in range(0, n, block):
+            kb = gram_reference(kern, x64[i:i + block], x64)
+            g = torch.autograd.grad(torch.sum(w[i:i + block] * kb), leaves)
             grads = [a + float(b) for a, b in zip(grads, g)]
     del w
     return value, grads, alpha
@@ -2759,6 +3010,9 @@ def phase_iterative(torch, gt, records):
     torch.cuda.empty_cache()
     out["f3"] = _iter_f3_run(torch, gt, gi, x, y, nug)
     torch.cuda.empty_cache()
+    out["past_table"] = _iter_f3_run(torch, gt, gi, x, y, nug,
+                                     _past_table_noise, "past_table+white")
+    torch.cuda.empty_cache()
 
     # -- stand-alone stages at N = 32,768, each counted ------------------
     out["stages_ms"] = _iter_stages(torch, gt, gi, cm, params, x, y, xs, pn, iters,
@@ -2815,30 +3069,38 @@ def _iter_matern_run(torch, gt, gi, x, y, nug):
             "ms_per_eval": eval_ms}
 
 
-def _iter_f3_run(torch, gt, gi, x, y, nug):
-    """One logml_value_and_grad_iterative at N = 32,768 with F3 (_f3) on
-    the example's data: the CUDA matvec by its launches, _hold_logml for
-    seed 0 with every leaf held as "other" but White, and the eval's ms."""
-    params = gt.Parameters(mean=gt.zero(), kernel=_f3(gt))
+def _iter_f3_run(torch, gt, gi, x, y, nug, make=None, label=F3):
+    """One logml_value_and_grad_iterative with F3 (_f3, or the tree ``make``
+    gives) on the example's data ``x``, ``y`` (N = 32,768, or its first
+    rows): the CUDA matvec by its launches, _hold_logml for seed 0 with
+    every leaf held as "other" but White, and the eval's ms."""
+    make = _f3 if make is None else make
+    params = gt.Parameters(mean=gt.zero(), kernel=make(gt))
     t0 = time.perf_counter()
     res, counts = _count(torch, lambda: gi.logml_value_and_grad_iterative(
         params, x, y, torch.Generator(device="cuda").manual_seed(0), **ITER))
     eval_s = time.perf_counter() - t0
-    print(f"iterative logML {F3} n={N_IT} launches: {json.dumps(counts)}; CG "
+    n = x.shape[0]
+    print(f"iterative logML {label} n={n} launches: {json.dumps(counts)}; CG "
           f"{res.cg_iters} iterations, converged {res.cg_converged}; "
           f"{1e3 * eval_s:.1f} ms (one eval, host clock)", flush=True)
     check(counts["gram_matvec"] > 0 and counts["torch_route_calls"] == 2,
-          "the F3 logML did not run on the CUDA matvec")
-    check(res.cg_converged, "F3 logML: CG did not converge")
-    k64 = _f3(gt, torch.float64)
-    dense_v, dense_g, _ = _dense_logml64(torch, gt, x, y, nug, k64)
+          f"the {label} logML did not run on the CUDA matvec")
+    check(res.cg_converged, f"{label} logML: CG did not converge")
+    k64 = make(gt, torch.float64)
+    t0 = time.perf_counter()
+    dense_v, dense_g, _ = _dense_logml64(torch, gt, x, y, nug, k64, block=1024)
     torch.cuda.empty_cache()
-    pn, sn = _iter_noise(torch, gi, 0, N_IT, ITER["n_probes"])
+    stage_s = {"dense_f64": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    pn, sn = _iter_noise(torch, gi, 0, n, ITER["n_probes"])
     r64 = gi._logml_value_and_grad_iterative(
         gt.Parameters(mean=gt.zero(), kernel=k64), x.double(), y.double(),
         probe_noise=pn.double(), slq_noise=sn.double(),
         lanczos_iters=ITER["lanczos_iters"], cg_tol=ITER["cg_tol"],
         precond_rank=ITER["precond_rank"])
+    stage_s["estimator_f64"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     # the witness: the same estimator and noise in float32, its matvec the
     # kernel's arithmetic in torch (the plain TF32 version), so that what
     # float32 does to CG and Lanczos shows apart from the kernel
@@ -2854,12 +3116,15 @@ def _iter_f3_run(torch, gt, gi, x, y, nug):
             precond_rank=ITER["precond_rank"])
     finally:
         tmv._uses_cuda_kernel, tmv._gram_matvec_torch = route, plain
-    print(f"F3 iterative CG iterations: f32 {res.cg_iters}, f64 {r64.cg_iters}, "
-          f"f32 plain TF32 version {w32.cg_iters}", flush=True)
+    stage_s["witness_f32"] = time.perf_counter() - t0
+    print(f"{label} iterative CG iterations: f32 {res.cg_iters}, f64 {r64.cg_iters}, "
+          f"f32 plain TF32 version {w32.cg_iters}; oracles' seconds "
+          f"{json.dumps({k: round(v, 1) for k, v in stage_s.items()})}",
+          flush=True)
     names = ["value"] + gt.params.names(k64)
     kinds = ["value"] + ["white" if k == "white" else "other"
                          for k in _leaf_kinds(gt, k64)]
-    worst = _hold_logml(f"logml {F3} n={N_IT} seed 0", _flat(gt, res),
+    worst = _hold_logml(f"logml {label} n={n} seed 0", _flat(gt, res),
                         _flat(gt, r64), [dense_v] + dense_g, names=names,
                         kinds=kinds, witness=_flat(gt, w32))
     return {"value": float(res.value), "launches": counts, "worst": worst,
@@ -6236,6 +6501,99 @@ def phase_parallel(torch, gt):
     return out
 
 
+# -- phase 11: the port's documentation on the card ---------------------------
+
+DOCS_RANKS = 4  # multi_chip.md's ranks, sharing the card over gloo
+
+
+def _doc_pages():
+    import pathlib
+
+    return sorted((pathlib.Path(__file__).resolve().parent
+                   / "docs_torch").glob("*.md"))
+
+
+def _doc_blocks(page):
+    import re
+
+    return re.findall(r"```python\n(.*?)```", page.read_text(), flags=re.S)
+
+
+def _all_kernel_counters():
+    from gpx_torch.ops import cuda_matvec
+
+    return {**_counters(), "gram_matvec": cuda_matvec.gram_matvec_cuda,
+            "cross_matvec": cuda_matvec.cross_matvec_cuda}
+
+
+def _run_page(torch, page):
+    """A page's blocks as written, in one namespace, with every kernel's
+    count set to 0 just before and read just after: (seconds, launches,
+    the names of its top-level floating tensors that are not finite)."""
+    counters = _all_kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    ns, block_s = {}, []
+    t0 = time.perf_counter()
+    for block in _doc_blocks(page):
+        tb = time.perf_counter()
+        exec(compile(block, page.name, "exec"), ns)
+        torch.cuda.synchronize()
+        block_s.append(round(time.perf_counter() - tb, 1))
+    secs = time.perf_counter() - t0
+    print(f"docs {page.stem}: seconds by block {block_s}", flush=True)
+    check(ns.get("DEVICE") == "cuda", f"{page.name}: not on the card")
+    bad = [k for k, v in ns.items() if isinstance(v, torch.Tensor)
+           and v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    return secs, {k: c.launches for k, c in counters.items()}, bad
+
+
+def _docs_rank(rank, page):
+    """One rank of multi_chip.md's world (four ranks sharing the card)."""
+    import pathlib
+
+    import torch
+
+    secs, launches, bad = _run_page(torch, pathlib.Path(page))
+    return {"seconds": secs, "launches": launches, "not_finite": bad}
+
+
+def phase_docs(torch, gt):
+    """Phase 11: every docs_torch/ page's blocks on the card as written
+    (its settings block names the card and the sizes), each run ending
+    with its own checks and every top-level floating tensor finite; each
+    page's seconds and kernel launches. multi_chip.md runs on four ranks
+    sharing the card over gloo (run_ranks, as phase 10 (b))."""
+    from gpx_torch.parallel.dryrun import run_ranks
+
+    t_all = time.perf_counter()
+    pages = _doc_pages()
+    check(len(pages) == 12, f"docs_torch/ has {len(pages)} pages, not 12")
+    out = {}
+    for page in pages:
+        blocks = _doc_blocks(page)
+        check(len(blocks) > 1 and blocks[0].startswith("DEVICE"),
+              f"{page.name}: no settings block first")
+        if page.stem == "multi_chip":
+            t0 = time.perf_counter()
+            ranks = run_ranks(_docs_rank, DOCS_RANKS, backend="gloo",
+                              args=(str(page),), timeout_s=PAR_TIMEOUT_S,
+                              threads=2)
+            secs = time.perf_counter() - t0
+            launches = [r["launches"] for r in ranks]
+            bad = sorted({k for r in ranks for k in r["not_finite"]})
+        else:
+            secs, launches, bad = _run_page(torch, page)
+        print(f"docs {page.stem}: {secs:.1f} s; launches {json.dumps(launches)}"
+              + (f"; not finite: {bad}" if bad else ""), flush=True)
+        check(not bad, f"{page.name}: not finite: {bad}")
+        out[page.stem] = {"seconds": secs, "launches": launches}
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"phase 11 (docs): {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6277,6 +6635,11 @@ def main() -> int:
         print("summary: " + json.dumps(summary), flush=True)
         print(f"total {time.perf_counter() - t0:.1f} s (examples only)",
               flush=True)
+        return 0
+    if "--docs-only" in sys.argv[1:]:
+        summary = {"docs": phase_docs(torch, gt)}
+        print("summary: " + json.dumps(summary), flush=True)
+        print(f"total {time.perf_counter() - t0:.1f} s (docs only)", flush=True)
         return 0
     if "--parallel-only" in sys.argv[1:]:
         summary = {"parallel": phase_parallel(torch, gt)}
@@ -6320,6 +6683,7 @@ def main() -> int:
     summary["statespace"] = phase_statespace(torch, gt)
     summary["examples"] = phase_examples(torch, gt)
     summary["parallel"] = phase_parallel(torch, gt)
+    summary["docs"] = phase_docs(torch, gt)
     print("summary: " + json.dumps(summary), flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
     order = ("gram", "trmm", "syrk_lower", "chol_inv_tile", "chol_inv_tile_off",

@@ -154,12 +154,10 @@ __device__ __forceinline__ void product_grads(
     float oth[4] = {1.0f, 1.0f, 1.0f, 1.0f};
     for (int u = first; u < end; ++u)
       if (u != t)
-        with_family(ts.type[u],
-                    RowFactor<R>{&ts.par[ts.off[u]], ts.aux[u], r2, oth});
-    with_family(ts.type[t],
-                FactorGrads<ARD, R, Acc>{&ts.par[ts.off[t]], ts.aux[t],
-                                         t == first, r2, wr, wk, oth, s, wkp,
-                                         tkw});
+        with_family(ts.type(u), RowFactor<R>{ts.par(u), ts.aux(u), r2, oth});
+    with_family(ts.type(t),
+                FactorGrads<ARD, R, Acc>{ts.par(t), ts.aux(t), t == first, r2,
+                                         wr, wk, oth, s, wkp, tkw});
     product_grads<ARD, Acc, R + 1>(ts, t, first, end, r2, wr, wk, s, wkp, tkw);
   }
 }
@@ -218,15 +216,15 @@ __device__ __forceinline__ void grad_epilogue(
   }
 
   for (int t = 0; t < n_terms; ++t) {
-    const int first = ts.first[t], end = ts.end[t];
+    const int first = ts.first(t), end = ts.end(t);
     typename Sink::Acc s[3] = {0, 0, 0};
     product_grads<ARD, typename Sink::Acc>(ts, t, first, end, r2, wr, wk, s,
                                            wkp, tkw);
-    const int arity = term_arity(ts.type[t]);
+    const int arity = term_arity(ts.type(t));
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       if (q == arity) break;  // uniform across the block
-      sink(ts.off[t] + q, s[q]);
+      sink(ts.off(t) + q, s[q]);
     }
   }
   sink(n_params, tkw);

@@ -28,7 +28,9 @@
 //   diagonal is forced to r2 = 0 and takes the nugget. The kernel is read
 //   from the term table (terms.cuh): a sum of products of SE, White,
 //   Matern (half-integer nu), RQ and Periodic leaves, each family
-//   evaluated over the thread's 16 entries under one switch.
+//   evaluated over the thread's 16 entries under one switch. The table is
+//   the block's only dynamic shared memory (7 KB at most: 256 rows and
+//   their parameters), sized from the tree at launch.
 #include <stdint.h>
 
 #include "grid.cuh"
@@ -59,8 +61,8 @@ gram_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
             int symmetric, float* __restrict__ out, int64_t ldo, int vec) {
   __shared__ float xs1[STAGED ? GR : 1][GDC + 1];
   __shared__ float xs2[STAGED ? GC : 1][GDC + 1];
-  __shared__ TermSmem ts;
-  load_terms(table, n_terms, params, n_params, ts);
+  extern __shared__ int4 gram_table[];  // dynamic: the term table alone
+  const TermSmem ts = load_terms(table, n_terms, params, n_params, gram_table);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ntc = (m + GC - 1) / GC;
@@ -161,11 +163,13 @@ int launch(const float* x1, const float* x2, int n, int m, int d,
            cudaStream_t st) {
   auto kern = gram_kernel<STAGED>;
   const int64_t tiles = (int64_t)((n + GR - 1) / GR) * ((m + GC - 1) / GC);
+  const int bytes = term_smem_bytes(n_terms, n_params);
   int grid = 0;
-  const cudaError_t e = resident_grid(kern, GTHREADS, 0, tiles, &grid);
+  const cudaError_t e = resident_grid(kern, GTHREADS, bytes, tiles, &grid);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, GTHREADS, 0, st>>>(x1, x2, n, m, d, table, n_terms, params,
-                                  n_params, nugget, symmetric, out, ldo, vec);
+  kern<<<grid, GTHREADS, bytes, st>>>(x1, x2, n, m, d, table, n_terms, params,
+                                      n_params, nugget, symmetric, out, ldo,
+                                      vec);
   return (int)cudaGetLastError();
 }
 

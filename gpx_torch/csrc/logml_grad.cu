@@ -48,13 +48,18 @@
 //   (a template flag) the epilogue adds the D sums sdot.
 // - The k loop runs at the 255-register cap: no instance spills (-Xptxas
 //   -v), which the non-inlined epilogue and the tiles' own base pointers
-//   keep so.
+//   keep so. The term table follows the ring in dynamic shared memory,
+//   sized from the tree at launch (at most 4.5 KB), and the epilogue call
+//   finds it there without an argument.
 // - fast (gpx's logml_kernel_grads(fast=True), _dot_bf16x2 on li_j): the
 //   second operand Li[k, j-tile] is rounded to TF32 and the first kept
 //   whole, two MMAs a step instead of three (mma_tf32.cuh, PASSES = 2), a
 //   template flag beside VEC and ARD; 2^-11 relative per product.
 #include "grad_epilogue.cuh"
 #include "mma_tf32.cuh"
+
+// the block's dynamic shared memory: the ring, then the term table
+extern __shared__ __align__(16) float grad_smem[];
 
 namespace {
 
@@ -67,6 +72,14 @@ static_assert(T::BM * KTS * 4 <= T::SMEM_BYTES, "the staged tile");
 // the ARD sums' scratch follows the staged tile in the ring
 constexpr int WKP_OFF = T::BM * KTS;
 static_assert((WKP_OFF + 16 * T::THREADS) * 4 <= T::SMEM_BYTES, "ARD sums");
+// the term table follows the ring (terms.cuh), sized at launch; at most
+// 128 outputs, so at most 126 hyperparameters
+constexpr int TABLE_MAX_BYTES = gpx::term_smem_bytes(GPX_MAX_TERMS, 128);
+
+__device__ __forceinline__ gpx::TermSmem staged_terms() {
+  return gpx::TermSmem{
+      reinterpret_cast<const int4*>(grad_smem + T::SMEM_BYTES / 4)};
+}
 
 // One 64 x 64 quadrant's epilogue, its K^-1 tile read from the staged
 // tile `kq` (row stride KTS). Not inlined: the mainloop runs at the
@@ -75,8 +88,8 @@ static_assert((WKP_OFF + 16 * T::THREADS) * 4 <= T::SMEM_BYTES, "ARD sums");
 template <bool ARD>
 __device__ __noinline__ void quadrant_epilogue(
     const float* kq, int i0, int j0, const float* __restrict__ x, int d,
-    const float* __restrict__ alpha, const gpx::TermSmem& ts, int n_terms,
-    int n_params, float* red, float* wkp, float* __restrict__ part) {
+    const float* __restrict__ alpha, int n_terms, int n_params, float* red,
+    float* wkp, float* __restrict__ part) {
   const int tx = gpx::tile_tx(), ty = gpx::tile_ty();
   float kinv[4][4];
 #pragma unroll
@@ -87,8 +100,8 @@ __device__ __noinline__ void quadrant_epilogue(
   // per product); only thread 0 reads or writes them
   if (threadIdx.x == 0)
     for (int o = 0; o < n_params + 2 + (ARD ? d : 0); ++o) part[o] = 0.0f;
-  gpx::grad_epilogue<ARD>(kinv, i0, j0, x, d, alpha, ts, n_terms, n_params,
-                          wkp, gpx::BlockSink{red, part});
+  gpx::grad_epilogue<ARD>(kinv, i0, j0, x, d, alpha, staged_terms(), n_terms,
+                          n_params, wkp, gpx::BlockSink{red, part});
 }
 
 template <bool VEC, bool ARD, int PASSES>
@@ -99,10 +112,10 @@ logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
                   const int* __restrict__ table, int n_terms,
                   const float* __restrict__ params, int n_params, int n_out,
                   float* __restrict__ partials) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ gpx::TermSmem ts;
+  float* smem = grad_smem;
   __shared__ float red[T::THREADS / 32];
-  gpx::load_terms(table, n_terms, params, n_params, ts);
+  gpx::load_terms(table, n_terms, params, n_params,
+                  reinterpret_cast<int4*>(smem + T::SMEM_BYTES / 4));
 
   int bi, bj;
   gpx::lower_tile(blockIdx.x, bi, bj);
@@ -153,8 +166,8 @@ logml_grad_kernel(const float* __restrict__ li, int64_t ldli,
       if (qc > qr) break;
       const int64_t tile = (int64_t)qr * (qr + 1) / 2 + qc;
       quadrant_epilogue<ARD>(kt + qi * QUAD * KTS + qj * QUAD, qr * QUAD,
-                             qc * QUAD, x, d, alpha, ts, n_terms, n_params,
-                             red, smem + WKP_OFF, partials + tile * n_out);
+                             qc * QUAD, x, d, alpha, n_terms, n_params, red,
+                             smem + WKP_OFF, partials + tile * n_out);
     }
   }
 }
@@ -167,13 +180,15 @@ int launch(const float* li, int64_t ldli, const float* x, int d,
   static bool attr = false;
   auto kern = logml_grad_kernel<VEC, ARD, PASSES>;
   if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             T::SMEM_BYTES + TABLE_MAX_BYTES);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
   const int nb = (n + T::BM - 1) / T::BM;
-  kern<<<nb * (nb + 1) / 2, T::THREADS, T::SMEM_BYTES, s>>>(
+  const int bytes = T::SMEM_BYTES + gpx::term_smem_bytes(n_terms, n_params);
+  kern<<<nb * (nb + 1) / 2, T::THREADS, bytes, s>>>(
       li, ldli, x, d, alpha, n, table, n_terms, params, n_params, n_out,
       partials);
   return (int)cudaGetLastError();

@@ -50,14 +50,17 @@
 //   the check's 1e-2 relative limit (PERF.md); the double sums cost a few
 //   percent on an H100 and fit the 128 registers. The ARD instance (a
 //   template flag, D more sums) keeps its per-entry sums in 16 KB of
-//   shared memory after the staged tile.
+//   shared memory after the staged tile. The term table follows, sized
+//   from the tree at launch: 48 bytes for SE + White, 4.5 KB at the
+//   largest expansion, where the ARD instance still holds two blocks an SM.
 #include "grad_epilogue.cuh"
 #include "grid.cuh"
 #include "mma_tf32.cuh"
 
-// the block's shared memory: the ring, then the staged tile, then the ARD
-// sums (dynamic), and the term table and per-warp output sums (static),
-// at file scope so that the epilogue call reads them without arguments
+// the block's shared memory: the ring, then the staged tile, the ARD sums
+// and the term table (dynamic, the table sized at launch), and the per-warp
+// output sums (static), at file scope so that the epilogue call reads them
+// without arguments
 extern __shared__ __align__(16) float probe_smem[];
 
 namespace {
@@ -72,12 +75,20 @@ constexpr int WARPS = T::THREADS / 32;
 static_assert(T::THREADS == gpx::THREADS, "the epilogue's thread count");
 static_assert(T::BM == gpx::BM && T::BN == gpx::BM, "the epilogue's tile");
 
-__shared__ gpx::TermSmem ts;
 __shared__ double wacc[WARPS * gpx::WACC_STRIDE];
 
+// the dynamic shared memory before the term table
 template <bool ARD>
-constexpr int smem_bytes() {
+__host__ __device__ constexpr int smem_bytes() {
   return 4 * (RING_FLOATS + KT_FLOATS + (ARD ? WKP_FLOATS : 0));
+}
+// at most 128 outputs, so at most 126 hyperparameters: with ARD at 256
+// rows, 2 x 111 KB of shared memory still holds two blocks an SM
+constexpr int TABLE_MAX_BYTES = gpx::term_smem_bytes(GPX_MAX_TERMS, 128);
+
+template <bool ARD>
+__device__ __forceinline__ int4* table_smem() {
+  return reinterpret_cast<int4*>(probe_smem + smem_bytes<ARD>() / 4);
 }
 
 // One tile's epilogue, its estimate read from the staged tile (row stride
@@ -95,7 +106,8 @@ __device__ __noinline__ void tile_epilogue(int i0, int j0,
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) what[r][c] = kq[(ty + 16 * r) * KTS + tx + 16 * c];
-  gpx::grad_epilogue<ARD>(what, i0, j0, x, d, alpha, ts, n_terms, n_params,
+  gpx::grad_epilogue<ARD>(what, i0, j0, x, d, alpha,
+                          gpx::TermSmem{table_smem<ARD>()}, n_terms, n_params,
                           probe_smem + RING_FLOATS + KT_FLOATS,
                           gpx::WarpSink{wacc});
 }
@@ -112,7 +124,8 @@ logml_probe_grad_kernel(const float* __restrict__ u, int64_t ldu,
   float* smem = probe_smem;
   for (int e = threadIdx.x; e < WARPS * gpx::WACC_STRIDE; e += T::THREADS)
     wacc[e] = 0.0;
-  gpx::load_terms(table, n_terms, params, n_params, ts);  // synchronizes
+  gpx::load_terms(table, n_terms, params, n_params,  // synchronizes
+                  table_smem<ARD>());
   float* kt = smem + RING_FLOATS;
 
   const int nb = n / T::BM;
@@ -191,10 +204,11 @@ int launch(const float* u, int64_t ldu, const float* z, int64_t ldz, int s,
            float* partials, int* grid, cudaStream_t st) {
   static bool attr = false;
   auto kern = logml_probe_grad_kernel<VEC, ARD>;
-  constexpr int bytes = smem_bytes<ARD>();
+  const int bytes = smem_bytes<ARD>() + gpx::term_smem_bytes(n_terms, n_params);
   if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<ARD>() + TABLE_MAX_BYTES);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }

@@ -35,7 +35,9 @@
 //   shared memory; an entry costs a multiply and one ex2.approx per term
 //   (the Gram and gradient kernels keep terms.cuh's device functions). The
 //   family switch runs once per term over 16 entries (half a tile); a
-//   product's factors multiply in place in registers.
+//   product's factors multiply in place in registers. The table and its
+//   constants are sized from the tree at launch (28 floats of shared
+//   memory for SE + White, 15 KB at 256 rows: two blocks an SM still fit).
 // - V through a ring of 4 cp.async stages: each stage holds the tile's
 //   (64, RC) slice of V and, for D <= 16, the tile's coordinates, so x_j
 //   comes from shared memory (x_i too: the block's rows are staged once);
@@ -265,19 +267,19 @@ __device__ __forceinline__ void mv_values(const TermSmem& ts,
 #pragma unroll
   for (int e = 0; e < N; ++e) out[e] = 0.0f;
   for (int t = 0; t < n_terms; ++t) {
-    const int end = ts.end[t];
-    if (ts.first[t] != t) continue;
+    const int end = ts.end(t);
+    if (ts.first(t) != t) continue;
     if (end == t + 1) {
-      mv_family(ts.type[t], MvLone<N>{tc[t], ts.aux[t], r2, out});
+      mv_family(ts.type(t), MvLone<N>{tc[t], ts.aux(t), r2, out});
     } else if (t == 0) {
       for (int u = t; u < end; ++u)
-        mv_family(ts.type[u], MvFactor<N>{tc[u], ts.aux[u], u == t, r2, out});
+        mv_family(ts.type(u), MvFactor<N>{tc[u], ts.aux(u), u == t, r2, out});
     } else {
 #pragma unroll
       for (int e = 0; e < N; ++e) {
-        float v = mv_value(ts.type[t], tc[t], ts.aux[t], r2[e]);
+        float v = mv_value(ts.type(t), tc[t], ts.aux(t), r2[e]);
         for (int u = t + 1; u < end; ++u)
-          v *= mv_value(ts.type[u], tc[u], ts.aux[u], r2[e]);
+          v *= mv_value(ts.type(u), tc[u], ts.aux(u), r2[e]);
         out[e] += v;
       }
     }
@@ -285,15 +287,26 @@ __device__ __forceinline__ void mv_values(const TermSmem& ts,
 }
 
 // Dynamic shared memory of an instance: the two split V tiles (hi/lo in
-// fragment order), the float-float sums' high parts, the ring (V slices
-// of RC + 8 floats a row, then the tile's coordinates as [D][64] when
-// staged), and the block's rows of x1 as [D][128] when staged
-static size_t mv_smem(int ni, int ds) {
+// fragment order), the float-float sums' high parts, the term table's
+// constants (MV_TC floats a row) and the table itself (terms.cuh), the ring
+// (V slices of RC + 8 floats a row, then the tile's coordinates as [D][64]
+// when staged), and the block's rows of x1 as [D][128] when staged. The
+// table's part is sized from the tree at launch; what comes before it has
+// a fixed size, so the constants sit at a fixed offset.
+__host__ __device__ constexpr int mv_fixed_floats(int ni) {
+  return 4 * MV_BK * 8 * ni + 4 * ni * MV_THREADS;
+}
+__host__ __device__ constexpr int mv_table_floats(int n_terms, int n_params) {
+  return MV_TC * n_terms + term_smem_bytes(n_terms, n_params) / 4;
+}
+static size_t mv_smem(int ni, int ds, int table_floats) {
   const int rc = 8 * ni;
-  return 4 * ((size_t)4 * MV_BK * rc + (size_t)4 * ni * MV_THREADS +
+  return 4 * ((size_t)mv_fixed_floats(ni) + (size_t)table_floats +
               (size_t)MV_STAGES * (MV_BK * (rc + MV_VPAD) + ds * MV_BK) +
               (size_t)ds * MV_ROWS);
 }
+constexpr int MV_TABLE_MAX =
+    mv_table_floats(GPX_MAX_TERMS, GPX_TERM_PARAMS * GPX_MAX_TERMS);
 
 // One tile of 64 points at j0 (of the block's range [.., j_hi)) into ring
 // stage `stg`: V's (64, RC) slice at column q0, and with XSM the points'
@@ -336,16 +349,22 @@ matvec_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
   constexpr int RC = 8 * NI, VS = RC + MV_VPAD;
   constexpr int SPE = 4;  // k steps per evaluation: 16 entries a thread
   extern __shared__ __align__(16) float smem[];
-  __shared__ TermSmem ts;
-  __shared__ float tc[GPX_MAX_TERMS][MV_TC];
-  load_terms(table, n_terms, params, n_params, ts);
   const int tid = threadIdx.x;
-  if (tid < n_terms)
-    mv_family(ts.type[tid], MvPrep{&ts.par[ts.off[tid]], ts.aux[tid], tc[tid]});
+  uint4* sbw = reinterpret_cast<uint4*>(smem);
+  // the float-float sums' high parts wait in shared memory between folds
+  // ([4 NI][MV_THREADS]): in registers they would cost a block per SM
+  float* sum = smem + 4 * MV_BK * RC;
+  float(*tc)[MV_TC] =
+      reinterpret_cast<float(*)[MV_TC]>(smem + mv_fixed_floats(NI));
+  const TermSmem ts =
+      load_terms(table, n_terms, params, n_params,
+                 reinterpret_cast<int4*>(smem + mv_fixed_floats(NI) +
+                                         MV_TC * n_terms));
+  for (int u = tid; u < n_terms; u += MV_THREADS)
+    mv_family(ts.type(u), MvPrep{ts.par(u), ts.aux(u), tc[u]});
 
   const int ds = XSM ? d : 0;
-  uint4* sbw = reinterpret_cast<uint4*>(smem);
-  float* ring = smem + 4 * MV_BK * RC;
+  float* ring = smem + mv_fixed_floats(NI) + mv_table_floats(n_terms, n_params);
   const int stage_floats = MV_BK * VS + ds * MV_BK;
   float* x1s = ring + MV_STAGES * stage_floats;
 
@@ -373,9 +392,6 @@ matvec_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
     cp_async_commit();
   }
 
-  // the float-float sums' high parts wait in shared memory between folds
-  // ([4 NI][MV_THREADS]): in registers they would cost a block per SM
-  float* sum = x1s + ds * MV_ROWS;
   float acc[NI][4];
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni)
@@ -545,7 +561,7 @@ static MvKernel instance() {
   if (!ready) {  // dynamic shared memory past 48 KB needs the opt-in
     cudaFuncSetAttribute(matvec_kernel<NI, XSM>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)mv_smem(NI, XSM ? MV_DMAX : 0));
+                         (int)mv_smem(NI, XSM ? MV_DMAX : 0, MV_TABLE_MAX));
     ready = true;
   }
   return matvec_kernel<NI, XSM>;
@@ -567,13 +583,13 @@ struct Plan {
 // The instance, and the column splits: the fewest that fill the card's
 // resident blocks best (waves of whole blocks), in whole 64-point tiles of
 // at least MV_MIN_SPLIT points
-static Plan plan(int n1, int n2, int r, int d) {
+static Plan plan(int n1, int n2, int r, int d, int n_terms, int n_params) {
   Plan p;
   p.ni = r <= 8 ? 1 : MV_MAX_NI;
   p.chunks = (r + 8 * p.ni - 1) / (8 * p.ni);
   const bool xsm = d <= MV_DMAX;
   p.fn = pick(p.ni, xsm);
-  p.smem = mv_smem(p.ni, xsm ? d : 0);
+  p.smem = mv_smem(p.ni, xsm ? d : 0, mv_table_floats(n_terms, n_params));
   int dev = 0, sms = 132, per_sm = 1;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -608,11 +624,12 @@ static Plan plan(int n1, int n2, int r, int d) {
 
 extern "C" {
 
-// The number of column splits gpx_matvec uses for these sizes: the caller
-// allocates `partials` as (splits, n1, r) doubles.
-int gpx_matvec_splits(int n1, int n2, int r, int d) {
+// The number of column splits gpx_matvec uses for these sizes and this
+// term table: the caller allocates `partials` as (splits, n1, r) doubles.
+int gpx_matvec_splits(int n1, int n2, int r, int d, int n_terms,
+                      int n_params) {
   if (n1 < 1 || n2 < 1 || r < 1 || d < 1) return 0;
-  return plan(n1, n2, r, d).splits;
+  return plan(n1, n2, r, d, n_terms, n_params).splits;
 }
 
 int gpx_matvec(const float* x1, const float* x2, int n1, int n2, int d,
@@ -623,7 +640,7 @@ int gpx_matvec(const float* x1, const float* x2, int n1, int n2, int d,
   if (n1 < 1 || n2 < 1 || r < 1 || d < 1 || n_terms < 1 ||
       n_terms > GPX_MAX_TERMS || n_params > GPX_TERM_PARAMS * GPX_MAX_TERMS)
     return (int)cudaErrorInvalidValue;
-  const Plan p = plan(n1, n2, r, d);
+  const Plan p = plan(n1, n2, r, d, n_terms, n_params);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid((n1 + MV_ROWS - 1) / MV_ROWS, p.splits, p.chunks);
   p.fn<<<grid, MV_THREADS, p.smem, s>>>(

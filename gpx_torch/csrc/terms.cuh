@@ -10,6 +10,12 @@
 // gpx_torch/ops/terms.py builds both arrays and holds term_values /
 // term_derivatives / term_dr2, the plain versions of value and grads below.
 //
+// The table is sized at launch: each kernel stages it in its dynamic shared
+// memory after its own buffers (load_terms), term_smem_bytes(n_terms,
+// n_params) bytes, so that SE + White's two rows take 48 bytes and the
+// largest expansion the kernels take, GPX_MAX_TERMS factors, 4 KB and its
+// parameters. A block stages the whole table once.
+//
 // Each family is a struct of two device functions: `value` (k(r2)) and
 // `grads` (k, dk/dtheta for up to three parameters, and dk/dr2, which the
 // ARD leg reads). Hot loops call with_family once per term with a functor
@@ -21,7 +27,7 @@
 
 #include <cuda_runtime.h>
 
-#define GPX_MAX_TERMS 8
+#define GPX_MAX_TERMS 256  // factors of the expansion, at most
 #define GPX_TERM_PARAMS 3  // hyperparameters of a term, at most
 #define GPX_TABLE_COLS 4   // (type, offset, aux, group)
 
@@ -35,34 +41,50 @@ enum TermType {
   TERM_PERIODIC = 4
 };
 
+// Bytes of the staged table: one int4 a row, then the hyperparameters,
+// rounded up to 16 bytes
+__host__ __device__ constexpr int term_smem_bytes(int n_terms, int n_params) {
+  return 16 * n_terms + 16 * ((n_params + 3) / 4);
+}
+
+// The staged table: row t is (type | aux << 4, offset, the offset counted
+// in floats from `rows`, first | end << 16), where first .. end - 1 are
+// the factors of t's product; the hyperparameters follow the rows.
 struct TermSmem {
-  int type[GPX_MAX_TERMS];
-  int off[GPX_MAX_TERMS];
-  int aux[GPX_MAX_TERMS];
-  int first[GPX_MAX_TERMS];  // the first term of t's product
-  int end[GPX_MAX_TERMS];    // one past its last
-  float par[GPX_TERM_PARAMS * GPX_MAX_TERMS];
+  const int4* rows;
+  __device__ __forceinline__ int type(int t) const { return rows[t].x & 15; }
+  __device__ __forceinline__ int aux(int t) const { return rows[t].x >> 4; }
+  __device__ __forceinline__ int off(int t) const { return rows[t].y; }
+  __device__ __forceinline__ const float* par(int t) const {
+    return reinterpret_cast<const float*>(rows) + rows[t].z;
+  }
+  __device__ __forceinline__ int first(int t) const {
+    return rows[t].w & 0xffff;
+  }
+  __device__ __forceinline__ int end(int t) const { return rows[t].w >> 16; }
 };
 
-// Stage the table in shared memory; every thread must call it.
-__device__ __forceinline__ void load_terms(const int* table, int n_terms,
-                                           const float* params, int n_params,
-                                           TermSmem& ts) {
+// Stage the table at `rows` (16-byte aligned shared memory of
+// term_smem_bytes(n_terms, n_params) bytes); every thread must call it.
+// The threads stride over the rows, so any table fits any block.
+__device__ __forceinline__ TermSmem load_terms(const int* table, int n_terms,
+                                               const float* params,
+                                               int n_params, int4* rows) {
   const int tid = threadIdx.x + blockDim.x * threadIdx.y;
-  if (tid < n_terms) {
-    const int* row = table + GPX_TABLE_COLS * tid;
+  const int nth = blockDim.x * blockDim.y;
+  for (int t = tid; t < n_terms; t += nth) {
+    const int* row = table + GPX_TABLE_COLS * t;
     const int g = row[3];
-    int a = tid, b = tid + 1;
+    int a = t, b = t + 1;
     while (a > 0 && table[GPX_TABLE_COLS * (a - 1) + 3] == g) --a;
     while (b < n_terms && table[GPX_TABLE_COLS * b + 3] == g) ++b;
-    ts.type[tid] = row[0];
-    ts.off[tid] = row[1];
-    ts.aux[tid] = row[2];
-    ts.first[tid] = a;
-    ts.end[tid] = b;
+    rows[t] = make_int4(row[0] | (row[2] << 4), row[1], 4 * n_terms + row[1],
+                        a | (b << 16));
   }
-  if (tid < n_params) ts.par[tid] = params[tid];
+  float* par = reinterpret_cast<float*>(rows + n_terms);
+  for (int i = tid; i < n_params; i += nth) par[i] = params[i];
   __syncthreads();
+  return TermSmem{rows};
 }
 
 // SE (h, s): h exp(-r2 / s^2)
@@ -210,18 +232,6 @@ __device__ __forceinline__ void with_family(int type, const F& f) {
   }
 }
 
-// k(r2) of one term, the switch per call (for rolled per-entry loops)
-__device__ __forceinline__ float term_value(int type, const float* p, int aux,
-                                            float r2) {
-  switch (type) {
-    case TERM_SE: return SE::value(p, aux, r2);
-    case TERM_WHITE: return White::value(p, aux, r2);
-    case TERM_MATERN: return Matern::value(p, aux, r2);
-    case TERM_RQ: return RQ::value(p, aux, r2);
-    default: return Periodic::value(p, aux, r2);
-  }
-}
-
 __device__ __forceinline__ int term_arity(int type) {
   return type == TERM_WHITE ? 1
          : (type == TERM_SE || type == TERM_MATERN) ? 2 : 3;
@@ -262,46 +272,23 @@ struct FactorValues {
 
 // out[c] += K(r2[c]) = sum_g prod_{t in g} k_t(r2[c]), c < N. A product is
 // formed left to right, as the JAX package's Product forms it, at its
-// first factor. Without STAGED, in N more registers (the Gram's 16
-// entries a thread); STAGED (`stage`: 2 N floats of shared memory a
-// thread, at stride `stride`), the entries pass through shared memory one
-// at a time, so that a wide thread (matvec's 32 entries) holds no more
-// registers for a product than for a lone term.
-template <int N, bool STAGED = false>
+// first factor, in N more registers (the Gram's 16 entries a thread).
+template <int N>
 __device__ __forceinline__ void kernel_values(const TermSmem& ts, int n_terms,
                                               const float (&r2)[N],
-                                              float (&out)[N],
-                                              float* stage = nullptr,
-                                              int stride = 0) {
+                                              float (&out)[N]) {
   for (int t = 0; t < n_terms; ++t) {
-    const int end = ts.end[t];
-    if (ts.first[t] != t) continue;
+    const int end = ts.end(t);
+    if (ts.first(t) != t) continue;
     if (end == t + 1) {
-      with_family(ts.type[t],
-                  LoneValues<N>{&ts.par[ts.off[t]], ts.aux[t], r2, out});
-    } else if constexpr (!STAGED) {
+      with_family(ts.type(t), LoneValues<N>{ts.par(t), ts.aux(t), r2, out});
+    } else {
       float pr[N];
       for (int u = t; u < end; ++u)
-        with_family(ts.type[u], FactorValues<N>{&ts.par[ts.off[u]], ts.aux[u],
-                                                u == t, r2, pr});
+        with_family(ts.type(u),
+                    FactorValues<N>{ts.par(u), ts.aux(u), u == t, r2, pr});
 #pragma unroll
       for (int c = 0; c < N; ++c) out[c] += pr[c];
-    } else {
-      float* q = stage;
-      float* prod = stage + N * stride;
-#pragma unroll
-      for (int c = 0; c < N; ++c) q[c * stride] = r2[c];
-#pragma unroll 1
-      for (int c = 0; c < N; ++c) {
-        float v = term_value(ts.type[t], &ts.par[ts.off[t]], ts.aux[t],
-                             q[c * stride]);
-        for (int u = t + 1; u < end; ++u)
-          v *= term_value(ts.type[u], &ts.par[ts.off[u]], ts.aux[u],
-                          q[c * stride]);
-        prod[c * stride] = v;
-      }
-#pragma unroll
-      for (int c = 0; c < N; ++c) out[c] += prod[c * stride];
     }
   }
 }

@@ -12,11 +12,13 @@ a tile kernel; every kernel but general-``nu`` Matérn) and gates
 ``method="hybrid"`` as it does there. ``cuda_supported`` says whether the
 CUDA kernels' term table (:mod:`gpx_torch.ops.terms`) can evaluate the
 kernel: a leaf (SE, White, Matérn with half-integer ``nu``, RQ, Periodic),
-or any tree of ``Sum``s and ``Product``s over such leaves whose expansion
-into a sum of products of leaves (every ``Product`` distributed over its
-``Sum``s) has at most :data:`MAX_TERMS` factors in all. Every other kernel
-(general-``nu`` Matérn, Linear, ``Ard`` below the top level, a tree that
-expands past the table) runs the plain torch route.
+or any tree of ``Sum``s and ``Product``s over such leaves. The table holds
+the tree's expansion into a sum of products of leaves (every ``Product``
+distributed over its ``Sum``s), sized at launch, up to :data:`MAX_TERMS`
+factors in all; :func:`check_table` raises past that, and the card's
+routes call it before they launch anything, rather than run a plain
+version there. Every other kernel (general-``nu`` Matérn, Linear, ``Ard``
+below the top level) runs the plain torch route.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from gpx_torch import bijectors as bij
 from gpx_torch._device import as_tensor
 from gpx_torch._module import FieldModule
 
-MAX_TERMS = 8  # csrc/terms.cuh: GPX_MAX_TERMS
+MAX_TERMS = 256  # csrc/terms.cuh: GPX_MAX_TERMS, factors of the expansion
 
 
 def _safe_dist(r2):
@@ -341,7 +343,7 @@ class Sum(Kernel):
 
     @property
     def cuda_supported(self) -> bool:
-        return _table_fits(self)
+        return _leaves_supported(self)
 
 
 class Product(Kernel):
@@ -375,7 +377,7 @@ class Product(Kernel):
 
     @property
     def cuda_supported(self) -> bool:
-        return _table_fits(self)
+        return _leaves_supported(self)
 
 
 def expanded_size(kernel) -> tuple[int, int]:
@@ -400,20 +402,16 @@ def _leaves_supported(kernel) -> bool:
     return kernel.cuda_supported
 
 
-def _table_fits(kernel) -> bool:
-    """Every leaf has a device function and the expansion has at most
-    :data:`MAX_TERMS` factors, the term table's rows."""
-    return _leaves_supported(kernel) and expanded_size(kernel)[1] <= MAX_TERMS
-
-
-def table_miss(kernel) -> str:
-    """Why the CUDA term table does not hold ``kernel``, for error
-    messages."""
-    if not _leaves_supported(kernel):
-        return "a part of it has no CUDA device function"
-    return (f"its expansion into a sum of products has "
-            f"{expanded_size(kernel)[1]} factors, more than the term table's "
-            f"{MAX_TERMS}")
+def check_table(kernel) -> None:
+    """Raise ``ValueError`` where the expansion of ``kernel`` has more than
+    :data:`MAX_TERMS` factors, the most the CUDA kernels' term table
+    takes; the message names the size."""
+    factors = expanded_size(kernel)[1]
+    if factors > MAX_TERMS:
+        raise ValueError(
+            f"the expansion of this {type(kernel).__name__} into a sum of "
+            f"products has {factors} factors, more than the {MAX_TERMS} the "
+            f"CUDA term table takes")
 
 
 def has_white(kernel) -> bool:

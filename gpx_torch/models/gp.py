@@ -43,7 +43,7 @@ from gpx_torch.distributions import normal_interval
 from gpx_torch.ops.chol import (
     add_jitter, back_solve, cholesky, forward_solve, spd_inverse_from_chol,
 )
-from gpx_torch.kernels import Ard, Sum, has_white, split_noise, table_miss
+from gpx_torch.kernels import Ard, Sum, check_table, has_white, split_noise
 from gpx_torch.ops.cuda_chol import (
     LEAF, chol_inv, spine_solve_lower, spine_solve_lower_t,
 )
@@ -339,10 +339,13 @@ def _logml_value_and_grad_hybrid(params: Parameters, x, y, nugget: float, *,
     n = x.shape[0]
     kern = params.kernel
     base_kernel, ell = _split_ard(kern)
-    if x.device.type == "cuda" and not base_kernel.cuda_supported:
-        raise NotImplementedError(
-            f"method='hybrid' on the card needs the CUDA term table to hold "
-            f"this {type(base_kernel).__name__}: {table_miss(base_kernel)}")
+    if x.device.type == "cuda":
+        if not base_kernel.cuda_supported:
+            raise NotImplementedError(
+                f"method='hybrid' on the card needs the CUDA term table to "
+                f"hold this {type(base_kernel).__name__}: a part of it has no "
+                f"CUDA device function")
+        check_table(base_kernel)
     ms = [t.detach().requires_grad_() for t in leaves(params.mean)]
     with torch.enable_grad():
         mean_val = unflatten(params.mean, ms)(x)

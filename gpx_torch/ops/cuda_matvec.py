@@ -32,7 +32,7 @@ from gpx_torch.params import leaves
 _ARGS = [_build.P, _build.P, _build.I, _build.I, _build.I, _build.P, _build.L,
          _build.I, _build.P, _build.I, _build.P, _build.I, _build.F, _build.I,
          _build.P, _build.P, _build.L, _build.P]
-_SPLIT_ARGS = [_build.I, _build.I, _build.I, _build.I]
+_SPLIT_ARGS = [_build.I] * 6
 
 
 def _checkpointed(kernel, *tensors):
@@ -219,11 +219,13 @@ def _launch(kernel, x1, x2, v2, nugget, *, symmetric):
     if n2 == 0:
         return out.zero_()
     table, params = table_tensors(kernel, dev)
-    splits = _build.function("matvec", "gpx_matvec_splits", _SPLIT_ARGS)(n1, n2, r, d)
+    n_terms = table.shape[0] // COLS
+    splits = _build.function("matvec", "gpx_matvec_splits", _SPLIT_ARGS)(
+        n1, n2, r, d, n_terms, params.shape[0])
     partials = torch.empty((splits, n1, r), dtype=torch.float64, device=dev)
     fn = _build.function("matvec", "gpx_matvec", _ARGS)
     status = fn(_build.ptr(x1), _build.ptr(x2), n1, n2, d, _build.ptr(v2),
-                v2.stride(0), r, _build.ptr(table), table.shape[0] // COLS,
+                v2.stride(0), r, _build.ptr(table), n_terms,
                 _build.ptr(params), params.shape[0], float(nugget),
                 int(symmetric), _build.ptr(partials), _build.ptr(out),
                 out.stride(0), _build.stream(dev))

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from gpx_torch.kernels import unwrap_ard
+from gpx_torch.kernels import check_table, unwrap_ard
 from gpx_torch.ops.cuda_gram import gram_cuda, gram_reference
 from gpx_torch.ops.distance import as_locations
 
@@ -48,9 +48,15 @@ def gram(kernel, x, x2=None, *, nugget: float = 0.0, method: str = "auto",
 
 
 def uses_cuda_kernel(kernel, x) -> bool:
-    """Whether :func:`gram` sends this kernel and input to the CUDA kernel."""
-    return (x.device.type == "cuda" and x.dtype == torch.float32
-            and kernel.is_stationary and kernel.cuda_supported)
+    """Whether :func:`gram` sends this kernel and input to the CUDA kernel;
+    raises ``ValueError`` for a tree that it would send there whose
+    expansion the term table cannot take (:func:`~gpx_torch.kernels.
+    check_table`), before anything launches."""
+    on_card = (x.device.type == "cuda" and x.dtype == torch.float32
+               and kernel.is_stationary and kernel.cuda_supported)
+    if on_card:
+        check_table(kernel)
+    return on_card
 
 
 def cross_gram(kernel, x1, x2, *, method: str = "auto"):

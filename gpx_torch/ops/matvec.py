@@ -5,18 +5,20 @@
 the iterative path (:mod:`gpx_torch.models.gp_iterative`) needs O(N (D + R))
 memory. A float32 CUDA tensor with a stationary, Pallas-safe kernel goes to
 the CUDA kernel (:mod:`gpx_torch.ops.cuda_matvec`), at any N and any number
-of columns, and raises ``NotImplementedError`` where the CUDA term table
-does not hold the kernel (a tree that expands past its
-:data:`~gpx_torch.kernels.MAX_TERMS` factors). CPU tensors, float64, and kernels that are
-not stationary or not Pallas-safe (which the JAX package sends to XLA too)
-take the plain row-blocked torch route. A build or launch error raises.
+of columns, and raises where the CUDA term table does not hold the kernel
+(``NotImplementedError`` for a part with no device function,
+``ValueError`` for a tree that expands past
+:data:`~gpx_torch.kernels.MAX_TERMS` factors). CPU tensors, float64, and
+kernels that are not stationary or not Pallas-safe (which the JAX package
+sends to XLA too) take the plain row-blocked torch route. A build or launch
+error raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gpx_torch.kernels import table_miss, unwrap_ard
+from gpx_torch.kernels import check_table, unwrap_ard
 from gpx_torch.ops.cuda_matvec import (
     _cross_matvec_torch, _gram_matvec_torch, cross_matvec_cuda,
     gram_matvec_cuda,
@@ -35,7 +37,9 @@ def _uses_cuda_kernel(kernel, x) -> bool:
     if not kernel.cuda_supported:
         raise NotImplementedError(
             f"the matvec on the card needs the CUDA term table to hold this "
-            f"{type(kernel).__name__}: {table_miss(kernel)}")
+            f"{type(kernel).__name__}: a part of it has no CUDA device "
+            f"function")
+    check_table(kernel)
     return True
 
 

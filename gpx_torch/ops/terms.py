@@ -5,8 +5,10 @@ leaf terms. The table holds its expansion into a sum of products of
 leaves: every ``Product`` distributed over its ``Sum``s, recursively, each
 product keeping its factors left to right (``(A + B) * C`` becomes ``A C +
 B C``). The CUDA Gram, matvec and gradient kernels take it as two small
-device arrays: ``table`` holds one ``(type, offset, aux, group)`` row per
-factor, and ``params`` the hyperparameters in
+device arrays of up to :data:`~gpx_torch.kernels.MAX_TERMS` rows, and
+each sizes its shared memory from them at launch: ``table`` holds one
+``(type, offset, aux, group)`` row per factor, and ``params`` the
+hyperparameters in
 :func:`gpx_torch.params.leaves` order, unexpanded, where ``offset`` points
 at the factor's leaf's first one (a leaf that appears in several products
 repeats its offset); ``aux`` is Matérn's ``p`` for ``nu = p + 1/2`` (0 for
@@ -34,8 +36,8 @@ import math
 import torch
 
 from gpx_torch.kernels import (
-    MAX_TERMS, Matern, Periodic, Product, RationalQuadratic, SquaredExponential,
-    Sum, White, expanded_size,
+    Matern, Periodic, Product, RationalQuadratic, SquaredExponential, Sum,
+    White, check_table,
 )
 from gpx_torch.params import leaves
 
@@ -79,8 +81,7 @@ def terms(kernel) -> list[tuple[int, int, object]]:
 
 def _rows(kernel):
     """``(type, offset, aux, group, leaf)`` per factor of the expansion."""
-    if expanded_size(kernel)[1] > MAX_TERMS:
-        raise ValueError(f"more than {MAX_TERMS} terms in the expansion")
+    check_table(kernel)
     out = []
     for g, product in enumerate(_products(kernel)[0]):
         for term, off in product:

@@ -1,8 +1,10 @@
-"""The port stands alone: no JAX and nothing of ``gpx`` in ``gpx_torch`` or
-``chip_smoke.py``, and no quiet fall-back to the CPU."""
+"""The port stands alone: no JAX and nothing of ``gpx`` in ``gpx_torch``,
+``chip_smoke.py`` or the pages of ``docs_torch/``, and no quiet fall-back
+to the CPU."""
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -16,7 +18,11 @@ FILES = sorted((ROOT / "gpx_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path):
-    for node in ast.walk(ast.parse(path.read_text())):
+    yield from _imports_of(ast.parse(path.read_text()))
+
+
+def _imports_of(tree):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
@@ -28,6 +34,19 @@ def test_no_jax_or_gpx_import(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in ("jax", "jaxlib", "gpx")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+DOCS = sorted((ROOT / "docs_torch").glob("*.md"))
+
+
+@pytest.mark.parametrize("doc", DOCS, ids=[d.stem for d in DOCS])
+def test_doc_imports_no_jax_or_gpx(doc):
+    """The port's pages (docs_torch/) use gpx_torch only: no ```python
+    block imports jax or gpx."""
+    blocks = re.findall(r"```python\n(.*?)```", doc.read_text(), flags=re.S)
+    mods = [m for block in blocks for m in _imports_of(ast.parse(block))]
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "gpx")]
+    assert mods and not bad, f"{doc.name} imports {bad}"
 
 
 def test_default_device_is_the_card():

@@ -382,16 +382,17 @@ def test_entry_points_public_and_scope(ref):
 
 @pytest.mark.parametrize("name, want", [
     ("se_white", True), ("matern_half_integer", True),
-    ("se_product", True), ("product_of_sum", NotImplementedError),
+    ("se_product", True), ("product_of_sum", True),
+    ("past_the_limit", ValueError),
     ("product_of_sum_in_table", True),
     ("matern_general_nu", False), ("linear", False)])
 def test_matvec_route_on_the_card(name, want):
     """The dispatch's gate for a float32 CUDA tensor (a stand-in: the gate
     reads only its device and type): the JAX package's Pallas gate; a
-    Product of Sums that the CUDA term table holds takes the kernel, and a
-    Pallas-safe kernel that the table lacks (a Product of Sums that expands
-    past its 8 factors) raises instead of running the plain route at every
-    solver step."""
+    Product of Sums that the CUDA term table holds takes the kernel (24
+    factors, past the old 8-row table, too), and a Pallas-safe kernel that
+    the table cannot take (a tree past its 256 factors) raises, naming its
+    size, instead of running the plain route at every solver step."""
     kern = {"se_white": lambda: gt.se(1.0, 2.0, **F32) + gt.white(0.5, **F32),
             "matern_half_integer": lambda: gt.matern(1.0, 1.5, 2.0, **F32),
             "se_product": lambda: gt.se(1.0, 2.0, **F32) * gt.se(1.0, 3.0, **F32),
@@ -403,14 +404,17 @@ def test_matvec_route_on_the_card(name, want):
                 gt.periodic(1.0, 3.0, 2.0, **F32)
                 + gt.rational_quadratic(1.0, 0.7, 2.0, **F32),
                 gt.se(1.0, 3.0, **F32) + gt.white(0.5, **F32))),
+            "past_the_limit": lambda: gt.Sum(
+                [gt.se(1.0, 2.0, **F32) * gt.periodic(1.0, 3.0, 2.0, **F32)]
+                * 129),
             "matern_general_nu": lambda: gt.matern(1.0, 1.3, 2.0, **F32),
             "linear": lambda: gt.linear(1.0, **F32)}[name]()
     on_card = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
     assert not tmv._uses_cuda_kernel(kern, torch.zeros((2, 1)))
     assert not tmv._uses_cuda_kernel(
         kern, SimpleNamespace(device=torch.device("cuda"), dtype=torch.float64))
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError, match=type(kern).__name__):
+    if want is ValueError:
+        with pytest.raises(ValueError, match="has 258 factors"):
             tmv._uses_cuda_kernel(kern, on_card)
     else:
         assert tmv._uses_cuda_kernel(kern, on_card) is want

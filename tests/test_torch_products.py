@@ -124,12 +124,15 @@ def test_f3_table_rows_repeat_the_shared_leaf():
     ("se+white*periodic", (2, 4), True),
     ("nested", (3, 8), True),
     ("eight_factors", (1, 8), True),
-    ("past_the_table", (8, 24), False),
-    ("nine_factors", (1, 9), False),
+    ("past_the_table", (8, 24), True),
+    ("nine_factors", (1, 9), True),
+    ("past_the_limit", (129, 258), False),
 ])
 def test_cuda_supported_by_expansion(name, size, fits):
-    """``cuda_supported`` is true for an expansion of at most 8 factors and
-    false past it, counted without expanding; the table raises past it."""
+    """``cuda_supported`` is true for every tree of table leaves, and the
+    table holds an expansion of at most ``MAX_TERMS`` (256) factors, counted
+    without expanding (the 24-factor tree was past the old 8-row table);
+    past it the table raises, naming the size."""
     se = gt.se(1.0, 2.0, **F64)
     kern = {
         "eight_factors": lambda: gt.Product((se,) * 8),
@@ -139,14 +142,15 @@ def test_cuda_supported_by_expansion(name, size, fits):
             gt.periodic(1.0, 2.0, 1.0, **F64)
             + gt.rational_quadratic(1.0, 0.7, 1.0, **F64),
             se + gt.white(0.1, **F64))),
+        "past_the_limit": lambda: gt.Sum([gt.Product((se, se))] * 129),
     }.get(name, lambda: _f3(gt, **F64) if name == "F3" else _kernel(name))()
     assert expanded_size(kern) == size
-    assert kern.cuda_supported is fits
+    assert kern.cuda_supported is True
     assert gt.ard(kern, [1.0], **F64).cuda_supported is False
     if fits:
         assert len(terms._rows(kern)) == size[1]
     else:
-        with pytest.raises(ValueError, match="more than 8"):
+        with pytest.raises(ValueError, match="has 258 factors, more than the 256"):
             terms.table_tensors(kern, "cpu")
 
 

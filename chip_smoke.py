@@ -236,6 +236,36 @@ runs phase 1 and phase 10 only, with no ``kernels`` or ``ok`` line.
 
 runs phase 1 and phase 11 only, with no ``kernels`` or ``ok`` line.
 
+    python3 chip_smoke.py --multi-card [--probe]
+
+runs gpx_torch.parallel with each of four ranks on a card of its own
+(exit 1, naming the count, on fewer than four cards), over NCCL:
+phase 1 in this process (the ranks only load the
+kernels), then legs (a)-(e), each with ranks of its own (run_ranks; a
+leg's fault is recorded, the next leg runs, and the exit is 1): (a) the
+bench case on make_mesh(data=4): the logML and gradient against float64
+and a mesh of one over NCCL in this process, the iterative logML with
+mesh= against the single card, distributed_predict on the merged data's
+first 16,380 points (16,383 does not split over four ranks) against
+float64, three L-BFGS steps of optimize(mesh=) with the first step's
+value and gradient against the single card; (b) on a 2 x 2 mesh
+sample_mh_2d and svgp.train(mesh=), then dryrun_multichip(4); (c) the
+logML and gradient and distributed_predict (M = 16,384) at N = 65,536
+distinct points against float64 (a factor built in place:
+_logml64_lean, _predict64_lean); (d) distributed_logml's value under
+torch.no_grad() at N = 131,072, where K alone is 64 GiB, against the
+matrix-free estimator on one card at three probe seeds; (e)
+docs_torch/multi_chip.md as written under ``torchrun --nproc-per-node 4``
+(each rank ``--page-rank``). Every leg prints each rank's card, its
+ms/eval (median of 3 after a warm-up, CUDA events, the ranks in step),
+peak memory and Gram and cross_matvec launches; (a) and (c) a
+torch.profiler trace of one eval on every rank (the NCCL kernels' device
+time against the eval's span) and the bytes each eval's collectives move
+beside NVLink's 450 GB/s. Every oracle runs in this process while no
+rank runs. It ends with one ``multi_card`` JSON line, no ``kernels`` or
+``ok`` line. ``--probe`` runs phase 1, the collectives and one
+bench-width eval only.
+
 Exits non-zero without a result when no CUDA card is present. Imports
 nothing of JAX.
 """
@@ -484,10 +514,7 @@ def _syrk_writes(torch, a, b) -> None:
 
 
 def phase_setup():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = out.stdout.strip().splitlines()[0]
+    card = _card_lines()[0]
     print(f"card: {card}", flush=True)
     from gpx_torch._device import full_fp32
     from gpx_torch.ops import _build
@@ -2599,14 +2626,19 @@ def phase_matvec_times(torch, gt):
     return out
 
 
+def _bench_params(gt):
+    """The bench case's kernel, SE(3.0, 5.5) + White(0.5), on DEV."""
+    return gt.Parameters(mean=gt.zero(), kernel=gt.se(3.0, 5.5, device=DEV)
+                         + gt.white(0.5, device=DEV))
+
+
 def _bench_case(gt):
     """The bench case: numpy seed 0, x ~ U(-10, 10) of shape (16384, 1),
     y ~ N(0, 1), float32 numpy arrays; SE(3.0, 5.5) + White(0.5)."""
     rng = np.random.default_rng(0)
     x_np = rng.uniform(-10.0, 10.0, size=(N_BENCH, 1)).astype(np.float32)
     y_np = rng.normal(size=N_BENCH).astype(np.float32)
-    params = gt.Parameters(mean=gt.zero(), kernel=gt.se(3.0, 5.5) + gt.white(0.5))
-    return params, x_np, y_np
+    return _bench_params(gt), x_np, y_np
 
 
 def _bench_case_cuda(torch, gt):
@@ -6212,7 +6244,7 @@ def _phase10_mesh_of_one(torch, gt):
                                     distributed_predict, make_mesh)
     from gpx_torch.parallel.mesh import init_process_group
 
-    out = {}
+    out, tag = {}, "phase 10 (a) [nccl]"
     params, x, y = _bench_case_cuda(torch, gt)
     store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
     init_process_group(0, 1, store, backend="nccl")
@@ -6226,14 +6258,14 @@ def _phase10_mesh_of_one(torch, gt):
         torch.cuda.reset_peak_memory_stats()
         (value, grads), launches = _par_count(torch, dist_eval)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"phase 10 (a) mesh of 1 (NCCL) launches: {json.dumps(launches)}"
+        print(f"{tag} mesh of 1 launches: {json.dumps(launches)}"
               f"; peak memory {out['peak_gib']:.2f} GiB", flush=True)
         check(launches["gram"] > 0, "(a) the Gram kernel was not launched")
         got = _flat_result(gt, value, grads)
         want = _f64_result(torch, gt, gp, params, x, y)
         witness = _flat_result(gt, *gp.logml_value_and_grad(
             params, x, y, method="autodiff"))
-        _hold_scalars("phase 10 (a) d=1", ["value", "h", "sigma", "white"],
+        _hold_scalars(f"{tag} d=1", ["value", "h", "sigma", "white"],
                       got, want, _bench_limits(want), witness)
         out.update(result=got, f64=want, witness=witness, launches=launches)
         ms = {}
@@ -6242,7 +6274,7 @@ def _phase10_mesh_of_one(torch, gt):
                               params, x, y))):
             ms[route] = _median_ms(torch, fn, reps=3)
         out["ms"] = ms
-        print(f"phase 10 (a) ms/eval at N = {N_BENCH} (median of 3, each "
+        print(f"{tag} ms/eval at N = {N_BENCH} (median of 3, each "
               f"call's): distributed d=1 {ms['distributed']}, phase 3's "
               f"fused {ms['fused']}", flush=True)
         torch.cuda.empty_cache()
@@ -6261,14 +6293,14 @@ def _phase10_mesh_of_one(torch, gt):
             gp.FUSED_MIN_N = keep
         for what, limit in (("mean", MEAN_LIMIT), ("variance", VAR_LIMIT)):
             err = _err_of_scale(getattr(post, what), getattr(want, what))
-            _hold_predict(f"phase 10 (a) distributed_predict n={xu.shape[0]} "
+            _hold_predict(f"{tag} distributed_predict n={xu.shape[0]} "
                           f"m={N_BENCH}", what, err,
                           _err_of_scale(getattr(lin, what),
                                         getattr(want, what)), limit)
             out[f"predict_{what}_err"] = err
         out["predict_ms"] = _median_ms(torch, lambda: distributed_predict(
             params, xu, yu, xs, mesh, panel=PAR_PREDICT_PANEL), reps=1)[0]
-        print(f"phase 10 (a) distributed_predict: {out['predict_ms']:.2f} ms "
+        print(f"{tag} distributed_predict: {out['predict_ms']:.2f} ms "
               f"(panel {PAR_PREDICT_PANEL})", flush=True)
         del post, want, lin
         torch.cuda.empty_cache()
@@ -6279,23 +6311,29 @@ def _phase10_mesh_of_one(torch, gt):
 
 
 def _phase10_rank(rank):
-    """(b), one rank of four sharing the card over gloo: the main path with
-    the counters set to 0 just before and read just after (the
-    distributed logML and gradient at the bench case on make_mesh(data=4),
-    then the iterative logML with mesh= at examples/large_n.py's N =
-    32,768 on phase 4's probes), its ms/eval and peak memory; then on a 2 x
-    2 mesh sample_mh_2d and svgp.train(mesh=) beside the single-card
-    trajectory on the same global minibatches. Returns plain numbers."""
+    """(b), one rank of four sharing the card over gloo: the data-parallel
+    paths on make_mesh(data=4) (_phase10_data_rank), then the 2 x 2 mesh
+    (_phase10_grid_rank). Returns plain numbers."""
+    out = _phase10_data_rank(rank)
+    out.update(_phase10_grid_rank(rank))
+    return out
+
+
+def _phase10_data_rank(rank, ms_fn=None):
+    """One rank of make_mesh(data=4): the main path with the counters set
+    to 0 just before and read just after (the distributed logML and
+    gradient at the bench case, then the iterative logML with mesh= at
+    examples/large_n.py's N = 32,768 on phase 4's probes), its peak memory
+    and each route's ms/eval by ``ms_fn`` (default _host_ms); rank 0 also
+    runs the iterative logML on its card alone on the same probes."""
     import torch
 
     import gpx_torch as gt
     from gpx_torch._device import full_fp32
     from gpx_torch.models import gp_iterative as gi
-    from gpx_torch.models import svgp
-    from gpx_torch.parallel import (distributed_logml_value_and_grad,
-                                    make_mesh, sample_mh_2d)
-    from gpx_torch.parallel import comm
+    from gpx_torch.parallel import distributed_logml_value_and_grad, make_mesh
 
+    ms_fn = ms_fn or _host_ms
     full_fp32()
     out = {}
     params, x, y = _bench_case_cuda(torch, gt)
@@ -6333,16 +6371,33 @@ def _phase10_rank(rank):
     out["logml"] = _flat_result(gt, v, g)
     out["iterative"] = _flat(gt, it)
     out["cg_iters"] = it.cg_iters
-    out["ms"] = _host_ms(torch, lambda: distributed_logml_value_and_grad(
+    out["ms"] = ms_fn(torch, lambda: distributed_logml_value_and_grad(
         params, x, y, mesh, panel=PAR_PANEL))
-    out["iterative_ms"] = _host_ms(torch, lambda: gi._logml_value_and_grad_iterative(
+    out["iterative_ms"] = ms_fn(torch, lambda: gi._logml_value_and_grad_iterative(
         p_it, xi, yi, mesh=mesh, **it_kw))
     if rank == 0:
         one = gi._logml_value_and_grad_iterative(p_it, xi, yi, **it_kw)
         out["iterative_one"] = _flat(gt, one)
     del xi, yi, pn, sn
     torch.cuda.empty_cache()
+    return out
 
+
+def _phase10_grid_rank(rank):
+    """One rank of a 2 x 2 (chains, data) mesh: sample_mh_2d at the bench
+    case, and svgp.train(mesh=) beside the single-card trajectory on the
+    same global minibatches."""
+    import torch
+
+    import gpx_torch as gt
+    from gpx_torch._device import full_fp32
+    from gpx_torch.models import svgp
+    from gpx_torch.parallel import make_mesh, sample_mh_2d
+    from gpx_torch.parallel import comm
+
+    full_fp32()
+    out = {}
+    _, x, y = _bench_case_cuda(torch, gt)
     grid = make_mesh(chains=2, data=2)
     n, draws, scale = PAR_MH
     t0 = time.perf_counter()
@@ -6395,18 +6450,35 @@ def _phase10_four_ranks(torch, gt, ref):
     outs = run_ranks(_phase10_rank, PAR_RANKS, backend="gloo",
                      timeout_s=PAR_TIMEOUT_S, threads=2)
     wall = time.perf_counter() - t0
-    r0 = outs[0]
     for r, o in enumerate(outs):
         print(f"phase 10 (b) rank {r}: launches {json.dumps(o['launches'])}, "
               f"peak memory {o['peak_gib']:.2f} GiB, ms/eval d=4 "
               f"{o['ms']:.1f}, iterative ms/eval {o['iterative_ms']:.1f}, "
               f"CG {o['cg_iters']}", flush=True)
+    _hold_d4(outs, ref, "phase 10 (b)")
+    _hold_grid(outs[0], "phase 10 (b)")
+    t1 = time.perf_counter()
+    dryrun_multichip(PAR_RANKS, backend="gloo", device="cuda",
+                     timeout_s=PAR_TIMEOUT_S)
+    print(f"phase 10 (b) dryrun_multichip({PAR_RANKS}, cuda): ok "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+    return {"ranks": outs, "ranks_wall_s": wall}
+
+
+def _hold_d4(outs, ref, tag):
+    """The data-parallel results of the d = 4 ranks (_phase10_data_rank)
+    held: each rank's launches, replicated results alike on every rank,
+    the logML and gradient against float64 and against the mesh of one
+    (``ref``: _phase10_mesh_of_one), the iterative logML against the single
+    card."""
+    r0 = outs[0]
+    for r, o in enumerate(outs):
         check(o["launches"]["gram"] > 0 and o["launches"]["cross_matvec"] > 0,
-              f"(b) rank {r}: the Gram kernel or cross_matvec not launched")
+              f"{tag} rank {r}: the Gram kernel or cross_matvec not launched")
         check(o["logml"] == r0["logml"] and o["iterative"] == r0["iterative"],
-              f"(b) rank {r}: a replicated result differs from rank 0's")
+              f"{tag} rank {r}: a replicated result differs from rank 0's")
     names = ["value", "h", "sigma", "white"]
-    _hold_scalars("phase 10 (b) d=4", names, r0["logml"], ref["f64"],
+    _hold_scalars(f"{tag} d=4", names, r0["logml"], ref["f64"],
                   _bench_limits(ref["f64"]), ref["witness"])
     # against (a): the same float32 program summed in another order: each
     # rank's trailing updates over its own rows and columns, the logdet's
@@ -6417,45 +6489,41 @@ def _phase10_four_ranks(torch, gt, ref):
     # torch.linalg route (a third order) against float64. Each output of
     # d = 4 is held to (a)'s within phase 3's limit or twice that route's
     # error, the limit each is held to against float64
-    for nm, a, b, w, f, lim in zip(names, ref["result"], r0["logml"],
-                                   ref["f64"], ref["witness"],
-                                   _bench_limits(ref["f64"])):
-        limit = max(lim, 2.0 * abs(f - w))
-        print(f"phase 10 (b) d=4 against (a) d=1 {nm}: {b:.8e} {a:.8e} diff "
-              f"{abs(a - b):.3e} (limit {limit:.3e}; base {lim:.3e}, "
-              f"float32 witness {abs(f - w):.3e})", flush=True)
-        check(abs(a - b) <= limit, f"(b) d=4 {nm} differs from (a)'s d=1")
+    _hold_to_ref(f"{tag} d=4 against d=1", names, r0["logml"], ref["result"],
+                 ref["f64"], ref["witness"])
     # the iterative logML against the single card on the same probes, at
     # phase 4's limits against the same estimator
     got, one = r0["iterative"], r0["iterative_one"]
     for nm, kind, a, b in zip(names, names, got, one):
         lim = {"value": 1e-4 * abs(b), "h": 0.5, "sigma": 1e-2 * abs(b),
                "white": 1e-3 * abs(b)}[kind]
-        print(f"phase 10 (b) iterative n={r0['n_iterative']} (pairs merged) "
+        print(f"{tag} iterative n={r0['n_iterative']} (pairs merged) "
               f"d=4 {nm}: {a:.8e} single card "
               f"{b:.8e} diff {abs(a - b):.3e} (limit {lim:.3e})", flush=True)
         check(math.isfinite(a) and abs(a - b) <= lim,
-              f"(b) iterative d=4 {nm} differs from the single card")
+              f"{tag} iterative d=4 {nm} differs from the single card")
+
+
+def _hold_grid(r0, tag):
+    """The 2 x 2 mesh's results (_phase10_grid_rank) held: sample_mh_2d's
+    draws finite with accept rates in (0, 1), svgp.train(mesh=) within 1e-4
+    relative of the single card."""
     mh = r0["mh_2d"]
     rates = mh["accept_rate"]
-    print(f"phase 10 (b) sample_mh_2d n={PAR_MH[0]} (proposal scale "
+    print(f"{tag} sample_mh_2d n={PAR_MH[0]} (proposal scale "
           f"{PAR_MH[2]}): draws {mh['shape']}, finite {mh['finite']}, accept "
           f"rates {rates}, {mh['s_per_draw']:.2f} s a logML of every chain "
           f"(the init's and each draw's)", flush=True)
     check(mh["shape"][:2] == [2, PAR_MH[1]] and mh["finite"]
-          and 0.0 < float(np.mean(rates)) < 1.0, "(b) sample_mh_2d")
+          and 0.0 < float(np.mean(rates)) < 1.0, f"{tag} sample_mh_2d")
     a, b = (np.array(r0["svgp"][k]) for k in ("mesh", "one"))
     rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
-    print(f"phase 10 (b) svgp.train(mesh=) {PAR_SVGP['steps']} steps against "
+    print(f"{tag} svgp.train(mesh=) {PAR_SVGP['steps']} steps against "
           f"the single card on the same global minibatches: max rel "
           f"{rel:.3e} (limit 1e-4) over the trained leaves, noise and ELBO "
           f"trace", flush=True)
-    check(rel <= 1e-4, "(b) svgp.train(mesh=) differs from the single card")
-    t1 = time.perf_counter()
-    dryrun_multichip(PAR_RANKS, device="cuda", timeout_s=PAR_TIMEOUT_S)
-    print(f"phase 10 (b) dryrun_multichip({PAR_RANKS}, cuda): ok "
-          f"({time.perf_counter() - t1:.1f} s)", flush=True)
-    return {"ranks": outs, "ranks_wall_s": wall}
+    check(rel <= 1e-4, f"{tag} svgp.train(mesh=) differs from the single "
+          f"card")
 
 
 def _cross_matvec_distributed_time(torch, gt):
@@ -6594,14 +6662,892 @@ def phase_docs(torch, gt):
     return out
 
 
+# -- the multi-card mode: gpx_torch.parallel with each rank on its own card ---
+
+MC_CARDS = 4                  # ranks, each on a card of its own
+MC_BACKEND = "nccl"
+MC_PREDICT = (16380, 117)     # (a): the merged bench data's first 16,380
+#                               points (16,383 does not split over 4 ranks),
+#                               4095 rows a rank = 35 panels of 117
+MC_OPT_STEPS = 3              # (a): L-BFGS steps of optimize(mesh=)
+MC_N_BEYOND = 65536           # (c): K 16 GiB in float32, 4 GiB a rank
+MC_N_HUGE = 131072            # (d): K 64 GiB in float32, K and L 128 GiB
+MC_M = 16384                  # test points of (a) and (c)
+MC_REPS = 3                   # timed evaluations after a warm-up
+MC_BLOCK64 = 2048             # the float64 oracles' row and column blocks
+MC_TIMEOUT_S = 900
+NVLINK_BYTES_S = 450e9        # H100 SXM NVLink 4: 450 GB/s each way
+
+
+def multi_card_gate(count: int) -> None:
+    """``--multi-card`` runs only where every rank has a card of its own."""
+    if count < MC_CARDS:
+        raise RuntimeError(f"--multi-card needs {MC_CARDS} cards, one a "
+                           f"rank; this machine has {count}")
+
+
+def _mc_tag(leg):
+    return f"multi-card ({leg}) [{MC_BACKEND}]"
+
+
+def _rank_card(torch, rank):
+    """This rank's card: its index, name and UUID, printed."""
+    import torch.distributed as dist
+
+    idx = torch.cuda.current_device()
+    prop = torch.cuda.get_device_properties(idx)
+    card = {"rank": rank, "card": idx, "name": prop.name,
+            "uuid": str(getattr(prop, "uuid", "")),
+            "backend": dist.get_backend()}
+    print(f"multi-card rank {rank}: card {idx} ({prop.name}, "
+          f"{card['uuid']}), backend {card['backend']}", flush=True)
+    return card
+
+
+def _step_ms(torch, fn, reps=MC_REPS, warmup=True):
+    """The median of ``reps`` calls of ``fn`` (after a warm-up unless the
+    caller made one), each timed by CUDA events on this rank with every
+    rank entering it in step (a barrier, then a synchronize), and the
+    times rounded to 0.01 ms."""
+    import torch.distributed as dist
+
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms), [round(t, 2) for t in ms]
+
+
+def _mc_counted(torch, fn):
+    """``fn()`` with the Gram and cross_matvec counters set to 0 just
+    before and read just after, and this rank's peak memory over it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = _par_count(torch, fn)
+    return out, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _trace_eval(torch, fn):
+    """One call of ``fn`` under torch.profiler on this rank (every rank
+    makes the same call): from the Chrome trace's kernels, the NCCL
+    kernels' device time against the span of the call (its first kernel's
+    start to its last one's end), the other kernels' time, the union of
+    every kernel's interval (busy time) and the kernel counts. An NCCL
+    kernel's time includes its wait for the slowest rank."""
+    import shutil
+    import tempfile
+
+    from gpx_torch.utils.profiling import device_trace
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with device_trace(tmp):
+            fn()
+        with open(f"{tmp}/trace.json") as f:
+            kernels = [(e["ts"], e["ts"] + e["dur"], "nccl" in e["name"].lower())
+                       for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(bool(kernels), "the trace holds no device kernel")
+    kernels.sort()
+    busy, end = 0.0, -math.inf
+    for t0, t1, _ in kernels:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    span = (max(k[1] for k in kernels) - kernels[0][0]) / 1e3
+    nccl = sum(t1 - t0 for t0, t1, c in kernels if c) / 1e3
+    other = sum(t1 - t0 for t0, t1, c in kernels if not c) / 1e3
+    return {"span_ms": span, "nccl_ms": nccl, "compute_ms": other,
+            "busy_ms": busy / 1e3, "nccl_share": nccl / span,
+            "kernels": len(kernels),
+            "nccl_kernels": sum(1 for k in kernels if k[2])}
+
+
+def _panel_bytes(n, panel, d, *, grad=False, m=0):
+    """Bytes each rank receives in one evaluation of the panel program,
+    from its shapes (float32): the locations' all-gather; per panel one
+    all-gather of the (N, panel) column block (a rank receives the (d - 1)
+    / d it lacks: 4 N^2 (d - 1) / d in all) and one psum of the forward
+    solve's panel values (a ring all-reduce receives 2 (d - 1) / d of its
+    bytes); with ``grad`` the transposes again (a reduce-scatter of each
+    gather, an all-reduce of each psum). ``m``: distributed_predict's
+    M test points, whose back solve psums each panel's prefix (N^2 / (2
+    panel) values in all) and column solve a (panel, M) block per panel."""
+    share = (d - 1) / d
+    gather = 4.0 * (n + n * n) * share
+    psums = 4.0 * n * 2 * share
+    total = gather + psums
+    if grad:
+        total *= 2
+    if m:
+        total += 4.0 * 2 * share * (n * n / (2 * panel) + n * m + 2 * m)
+    return total
+
+
+def _bytes_line(label, nbytes):
+    bound = 1e3 * nbytes / NVLINK_BYTES_S
+    print(f"{label} collectives: {nbytes / 1e9:.3f} GB received a rank an "
+          f"eval (from the shapes), {bound:.3f} ms at NVLink's 450 GB/s "
+          f"each way", flush=True)
+    return {"gb": nbytes / 1e9, "bound_ms": bound}
+
+
+def _distinct_case(n, seed=0):
+    """The bench case's recipe at ``n`` with no coincident pair: x ~ U(-10,
+    10) in float32 from numpy seed ``seed``, drawn 2 n at once and kept in
+    draw order, each point dropped that lies within 4 float32 ulps of 10
+    of an earlier kept one (so no float32 centring merges two points and
+    White fires on the diagonal only); then y ~ N(0, 1) from the same
+    generator. Shapes (n, 1) and (n,)."""
+    rng = np.random.default_rng(seed)
+    pool = rng.uniform(-10.0, 10.0, size=2 * n).astype(np.float32)
+    gap = 4 * np.spacing(np.float32(10.0))
+    keep = np.ones(pool.size, bool)
+    while True:
+        idx = np.flatnonzero(keep)
+        order = idx[np.argsort(pool[idx], kind="stable")]
+        close = np.diff(pool[order]) < gap
+        if not close.any():
+            break
+        keep[np.maximum(order[:-1][close], order[1:][close])] = False
+    x = pool[np.flatnonzero(keep)[:n]]
+    check(x.size == n, f"fewer than {n} distinct points in the pool")
+    return x[:, None], rng.normal(size=n).astype(np.float32)
+
+
+def _factor64(torch, kern, xc, nugget, block=MC_BLOCK64):
+    """The lower Cholesky factor of K(xc, xc) + nugget I in float64, built
+    and factored in one N x N buffer, right-looking, ``block`` columns a
+    step, the trailing update in place (both triangles): at N = 65,536 the
+    buffer is 32 GiB and no second array of its size forms, where the
+    torch.linalg factor and its inverse each take one more."""
+    from gpx_torch.ops.cuda_gram import gram_reference
+
+    n = xc.shape[0]
+    zero = torch.zeros((1, xc.shape[1]), dtype=xc.dtype, device=xc.device)
+    k = torch.empty((n, n), dtype=torch.float64, device=xc.device)
+    for i in range(0, n, block):
+        k[i:i + block] = gram_reference(kern, xc[i:i + block], xc, center=zero)
+    k.diagonal().add_(nugget)
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        ld = torch.linalg.cholesky(k[s:e, s:e])
+        k[s:e, s:e] = ld
+        if e < n:
+            p = torch.linalg.solve_triangular(ld, k[e:, s:e].mT,
+                                              upper=False).mT
+            k[e:, s:e] = p
+            k[e:, e:].addmm_(p, p.mT, alpha=-1.0)
+    return k.tril_()
+
+
+def _solve64(torch, l, b):
+    """K^-1 b from K's factor: two triangular solves."""
+    u = torch.linalg.solve_triangular(l, b, upper=False)
+    return torch.linalg.solve_triangular(l.mT, u, upper=True)
+
+
+def _logml64_lean(torch, gt, kern, xc, y, nugget, block=MC_BLOCK64):
+    """The float64 logML and its kernel gradient on the float32-centred
+    coordinates ``xc`` (float64) where two N x N float64 arrays do not fit
+    one card: the factor by :func:`_factor64`; the gradient sum_ij W_ij dK_ij
+    / dtheta with W = (alpha alpha^T - K^-1) / 2 by autograd of the Gram's
+    row blocks, each block of K^-1 from two triangular solves of the
+    identity's columns. Returns [value, *kernel gradients]."""
+    from gpx_torch.ops.cuda_gram import gram_reference
+
+    n = xc.shape[0]
+    zero = torch.zeros((1, xc.shape[1]), dtype=xc.dtype, device=xc.device)
+    l = _factor64(torch, kern, xc, nugget, block)
+    y64 = y.double()
+    alpha = _solve64(torch, l, y64[:, None])[:, 0]
+    value = (-0.5 * float(y64 @ alpha) - float(torch.log(l.diagonal()).sum())
+             - 0.5 * n * math.log(2.0 * math.pi))
+    leaves = [t.detach().requires_grad_() for t in gt.params.leaves(kern)]
+    kl = gt.params.unflatten(kern, leaves)
+    grads = [0.0] * len(leaves)
+    for i in range(0, n, block):
+        j = min(i + block, n)
+        eye = torch.zeros((n, j - i), dtype=torch.float64, device=xc.device)
+        eye[i:j].fill_diagonal_(1.0)
+        w = _solve64(torch, l, eye).mT.mul_(-0.5)   # rows i:j of -K^-1 / 2
+        del eye
+        w.addr_(alpha[i:j], alpha, alpha=0.5)
+        with torch.enable_grad():
+            kb = gram_reference(kl, xc[i:j], xc, center=zero)
+            g = torch.autograd.grad(torch.sum(w * kb), leaves)
+        grads = [a + float(b) for a, b in zip(grads, g)]
+        del w, kb
+    del l
+    torch.cuda.empty_cache()
+    return [value] + grads
+
+
+def _predict64_lean(torch, kern, xc, y, xsc, nugget, block=MC_BLOCK64):
+    """The float64 posterior mean and variance at ``xsc`` (zero mean, the
+    float32-centred coordinates as float64) from :func:`_factor64`, the
+    test points taken ``2 block`` at a time."""
+    from gpx_torch.ops.cuda_gram import gram_reference
+
+    zero = torch.zeros((1, xc.shape[1]), dtype=xc.dtype, device=xc.device)
+    l = _factor64(torch, kern, xc, nugget, block)
+    alpha = _solve64(torch, l, y.double()[:, None])[:, 0]
+    means, variances = [], []
+    for i in range(0, xsc.shape[0], 2 * block):
+        ks = gram_reference(kern, xc, xsc[i:i + 2 * block], center=zero)
+        means.append(ks.mT @ alpha)
+        a = torch.linalg.solve_triangular(l, ks, upper=False)
+        variances.append(kern.diag(xsc[i:i + 2 * block], dtype=torch.float64)
+                         - a.square_().sum(dim=0))
+        del ks, a
+    del l
+    torch.cuda.empty_cache()
+    return torch.cat(means), torch.clamp_min(torch.cat(variances), 0.0)
+
+
+def _centred64(x):
+    """The float32-centred coordinates the Gram kernel sees, as float64."""
+    return (x - x.mean(dim=0, keepdim=True)).double()
+
+
+def _hold_to_ref(tag, names, got, ref, f64, witness):
+    """d = 4 against another float32 result of the same function (a mesh
+    of one, the single card) within phase 3's limit or twice the float32
+    witness's error against float64, as phase 10 (b) holds d = 4 to d = 1."""
+    for nm, a, b, w, f, lim in zip(names, ref, got, f64, witness,
+                                   _bench_limits(f64)):
+        limit = max(lim, 2.0 * abs(f - w))
+        print(f"{tag} {nm}: {b:.8e} against {a:.8e} diff {abs(a - b):.3e} "
+              f"(limit {limit:.3e}; base {lim:.3e}, float32 witness "
+              f"{abs(f - w):.3e})", flush=True)
+        check(abs(a - b) <= limit, f"{tag} {nm} differs")
+
+
+def _mc_rank_ab(rank, predict_n, predict_panel):
+    """Legs (a) and (b) on one rank of four: the collectives probe, the
+    bench-width logML and gradient (launches, peak, ms/eval, a trace), the
+    data-parallel paths of phase 10 (_phase10_data_rank, timed by
+    _step_ms), distributed_predict at ``predict_n`` points, optimize(mesh=)
+    (L-BFGS), then the 2 x 2 mesh (_phase10_grid_rank)."""
+    import torch
+
+    import gpx_torch as gt
+    from gpx_torch._device import full_fp32
+    from gpx_torch.models.optimize import optimize
+    from gpx_torch.parallel import (distributed_logml_value_and_grad,
+                                    distributed_predict, make_mesh)
+
+    full_fp32()
+    out = {"card": _rank_card(torch, rank)}
+    mesh = make_mesh(data=MC_CARDS, device=DEV)
+    out["probe"] = _collectives_probe(torch, mesh)
+    params, x, y = _bench_case_cuda(torch, gt)
+
+    def vag():
+        return distributed_logml_value_and_grad(params, x, y, mesh,
+                                                panel=PAR_PANEL)
+
+    _, out["vag_launches"], out["vag_peak_gib"] = _mc_counted(torch, vag)
+    out["vag_ms"] = _step_ms(torch, vag, warmup=False)
+    out["vag_trace"] = _trace_eval(torch, vag)
+    torch.cuda.synchronize()
+    out.update(_phase10_data_rank(rank, _step_ms))
+
+    xu, yu = _merged_bench(torch, gt)[1:3]
+    xu, yu = xu[:predict_n], yu[:predict_n]
+    xs = torch.linspace(-10.0, 10.0, MC_M, device=DEV)[:, None]
+
+    def pred():
+        return distributed_predict(params, xu, yu, xs, mesh,
+                                   panel=predict_panel)
+
+    post, out["predict_launches"], out["predict_peak_gib"] = _mc_counted(
+        torch, pred)
+    out["predict_ms"] = _step_ms(torch, pred, reps=1, warmup=False)
+    out["predict"] = _replicated(rank, [post.mean, post.variance])
+    del post
+    torch.cuda.synchronize()
+
+    start = _map_template(gt)
+    v0, g0 = distributed_logml_value_and_grad(start, x, y, mesh,
+                                              panel=PAR_PANEL)
+    out["opt_start"] = _flat_result(gt, v0, g0)
+    t0 = time.perf_counter()
+    res = optimize(start, x, y, steps=MC_OPT_STEPS, mesh=mesh,
+                   panel=PAR_PANEL)
+    torch.cuda.synchronize()
+    out["opt_s"] = time.perf_counter() - t0
+    out["opt"] = {"values": res.values.tolist(), "value": float(res.value),
+                  "params": [float(t) for t in gt.params.leaves(res.params)],
+                  "grad_norm": float(res.grad_norm)}
+    torch.cuda.empty_cache()
+    out.update(_phase10_grid_rank(rank))
+    torch.cuda.synchronize()
+    return out
+
+
+def _collectives_probe(torch, mesh):
+    """One all-gather, psum and reduce-scatter across the mesh's cards on
+    known values, each result held exactly, and their host times."""
+    from gpx_torch.parallel import comm
+
+    d, r = comm.axis_size(mesh, "data"), comm.axis_index(mesh, "data")
+    f32 = dict(device=DEV, dtype=torch.float32)
+    t = torch.full((2, 3), float(r + 1), **f32)
+    base = torch.arange(2 * d * 3, **f32).reshape(2 * d, 3)
+    t0 = time.perf_counter()
+    got = comm.all_gather(t, mesh, "data")
+    total = comm.psum(t, mesh, "data")
+    mine = comm.reduce_scatter(base * (r + 1), mesh, "data")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ranks = torch.arange(1, d + 1, **f32).repeat_interleave(2)[:, None]
+    ok = (torch.equal(got, ranks.expand(2 * d, 3))
+          and torch.equal(total, torch.full((2, 3), d * (d + 1) / 2, **f32))
+          and torch.equal(mine, base[2 * r:2 * r + 2] * (d * (d + 1) / 2)))
+    return {"ok": bool(ok), "s": secs}
+
+
+def _replicated(rank, tensors):
+    """A replicated result: its sha256 on every rank, its values (numpy)
+    from rank 0."""
+    import hashlib
+
+    arrays = [t.detach().cpu().numpy() for t in tensors]
+    digest = hashlib.sha256(b"".join(a.tobytes() for a in arrays)).hexdigest()
+    return {"sha256": digest, "values": arrays if rank == 0 else None}
+
+
+def _mc_rank_beyond(rank, n):
+    """Leg (c) on one rank of four: the distributed logML and gradient at
+    ``n`` distinct points (launches, peak, ms/eval, a trace), then
+    distributed_predict at M test points."""
+    import torch
+
+    import gpx_torch as gt
+    from gpx_torch._device import full_fp32
+    from gpx_torch.parallel import (distributed_logml_value_and_grad,
+                                    distributed_predict, make_mesh)
+
+    full_fp32()
+    out = {"card": _rank_card(torch, rank)}
+    mesh = make_mesh(data=MC_CARDS, device=DEV)
+    x_np, y_np = _distinct_case(n)
+    x = torch.as_tensor(x_np, device=DEV)
+    y = torch.as_tensor(y_np, device=DEV)
+    params = _bench_params(gt)
+
+    def vag():
+        return distributed_logml_value_and_grad(params, x, y, mesh,
+                                                panel=PAR_PANEL)
+
+    (v, g), out["vag_launches"], out["vag_peak_gib"] = _mc_counted(torch, vag)
+    out["logml"] = _flat_result(gt, v, g)
+    del v, g
+    out["vag_ms"] = _step_ms(torch, vag, warmup=False)
+    out["vag_trace"] = _trace_eval(torch, vag)
+    torch.cuda.synchronize()
+    xs = torch.linspace(-10.0, 10.0, MC_M, device=DEV)[:, None]
+
+    def pred():
+        return distributed_predict(params, x, y, xs, mesh, panel=PAR_PANEL)
+
+    post, out["predict_launches"], out["predict_peak_gib"] = _mc_counted(
+        torch, pred)
+    out["predict_ms"] = _step_ms(torch, pred, reps=1, warmup=False)
+    out["predict"] = _replicated(rank, [post.mean, post.variance])
+    torch.cuda.synchronize()
+    return out
+
+
+def _mc_rank_huge(rank, n):
+    """Leg (d) on one rank of four: distributed_logml's value under
+    torch.no_grad() at ``n`` distinct points (launches, peak, ms/eval)."""
+    import torch
+
+    import gpx_torch as gt
+    from gpx_torch._device import full_fp32
+    from gpx_torch.parallel import distributed_logml, make_mesh
+
+    full_fp32()
+    out = {"card": _rank_card(torch, rank)}
+    mesh = make_mesh(data=MC_CARDS, device=DEV)
+    x_np, y_np = _distinct_case(n)
+    x = torch.as_tensor(x_np, device=DEV)
+    y = torch.as_tensor(y_np, device=DEV)
+    params = _bench_params(gt)
+
+    def value():
+        with torch.no_grad():
+            return distributed_logml(params, x, y, mesh, panel=PAR_PANEL)
+
+    v, out["launches"], out["peak_gib"] = _mc_counted(torch, value)
+    out["value"] = float(v)
+    out["ms"] = _step_ms(torch, value, warmup=False)
+    torch.cuda.synchronize()
+    return out
+
+
+def _ranks_alike(outs, keys, tag):
+    """Each rank on a card of its own, over one backend, and every
+    replicated result the same on every rank."""
+    cards = [(o["card"]["card"], o["card"]["uuid"]) for o in outs]
+    uuids = {c[1] for c in cards if c[1]}
+    check(len({c[0] for c in cards}) == len(outs)
+          and len(uuids) in (0, len(outs)),
+          f"{tag}: two ranks share a card: {cards}")
+    backends = {o["card"]["backend"] for o in outs}
+    check(len(backends) == 1, f"{tag}: the ranks' backends differ: {backends}")
+    for key in keys:
+        for r, o in enumerate(outs):
+            a, b = o[key], outs[0][key]
+            if isinstance(a, dict) and "sha256" in a:
+                a, b = a["sha256"], b["sha256"]
+            check(a == b, f"{tag} rank {r}: {key} differs from rank 0's")
+
+
+def _rank_lines(outs, tag, keys):
+    """Each rank's launches, peak memory and times, one line a rank."""
+    for r, o in enumerate(outs):
+        print(f"{tag} rank {r} (card {o['card']['card']}): "
+              + "; ".join(f"{k} {json.dumps(o[k])}" for k in keys if k in o),
+              flush=True)
+
+
+def _mc_ab(torch, gt):
+    """Legs (a) and (b): the parent's mesh of one and oracles, the four
+    ranks, and the holds; then dryrun_multichip(4)."""
+    from gpx_torch.models import gp
+    from gpx_torch.models.optimize import optimize
+    from gpx_torch.parallel.dryrun import dryrun_multichip, run_ranks
+
+    tag = _mc_tag("a")
+    ref = _phase10_mesh_of_one(torch, gt)
+    n, panel = MC_PREDICT
+    params, xu, yu, xs = _merged_bench(torch, gt)
+    xu, yu = xu[:n], yu[:n]
+    want = _fit64(gt, gp, params, xu, yu, xs)
+    keep = gp.FUSED_MIN_N
+    gp.FUSED_MIN_N = n + 1
+    try:
+        lin = gp.fit(params, xu, yu, xs)
+    finally:
+        gp.FUSED_MIN_N = keep
+    pred_ref = {k: (getattr(want, k), getattr(lin, k))
+                for k in ("mean", "variance")}
+    del want, lin
+    _, x, y = _bench_case_cuda(torch, gt)
+    start = _map_template(gt)
+    single = _flat_result(gt, *gp.logml_value_and_grad(start, x, y))
+    start64 = _f64_result(torch, gt, gp, start, x, y)
+    start_wit = _flat_result(gt, *gp.logml_value_and_grad(
+        start, x, y, method="autodiff"))
+    opt_one = optimize(start, x, y, steps=MC_OPT_STEPS)
+    opt_one = {"values": opt_one.values.tolist(),
+               "params": [float(t) for t in gt.params.leaves(opt_one.params)]}
+    del x, y
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    outs = run_ranks(_mc_rank_ab, MC_CARDS, backend=MC_BACKEND,
+                     args=(n, panel), timeout_s=MC_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    r0 = outs[0]
+    _rank_lines(outs, tag, ["probe", "vag_launches", "vag_peak_gib", "vag_ms",
+                            "vag_trace", "launches", "peak_gib", "ms",
+                            "iterative_ms", "cg_iters", "predict_launches",
+                            "predict_peak_gib", "predict_ms", "opt_s"])
+    check(all(o["probe"]["ok"] for o in outs),
+          f"{tag}: all_gather, psum or reduce_scatter gave a wrong value")
+    _ranks_alike(outs, ["logml", "iterative", "predict", "opt_start", "opt"],
+                 tag)
+    for r, o in enumerate(outs):
+        check(o["vag_launches"]["gram"] == 1, f"{tag} rank {r}: not 1 Gram "
+              f"launch per distributed logML")
+        check(o["predict_launches"]["gram"] == 2, f"{tag} rank {r}: not 2 "
+              f"Gram launches per distributed_predict")
+    _hold_d4(outs, ref, tag)
+    _bytes_line(f"{tag} logML + gradient N={N_BENCH}",
+                _panel_bytes(N_BENCH, PAR_PANEL, MC_CARDS, grad=True))
+    for what, limit in (("mean", MEAN_LIMIT), ("variance", VAR_LIMIT)):
+        got = torch.as_tensor(r0["predict"]["values"][what == "variance"],
+                              device=DEV)
+        w64, lin = pred_ref[what]
+        _hold_predict(f"{tag} distributed_predict n={n} m={MC_M} panel "
+                      f"{panel}", what, _err_of_scale(got, w64),
+                      _err_of_scale(lin, w64), limit)
+    names = ["value", "h", "sigma", "white"]
+    _hold_scalars(f"{tag} optimize(mesh=) first step", names, r0["opt_start"],
+                  start64, _bench_limits(start64), start_wit)
+    _hold_to_ref(f"{tag} optimize(mesh=) first step against the single card",
+                 names, r0["opt_start"], single, start64, start_wit)
+    v_mesh, v_one = r0["opt"]["values"][0], opt_one["values"][0]
+    print(f"{tag} optimize(mesh=) {MC_OPT_STEPS} L-BFGS steps: objective "
+          f"{r0['opt']['values']} (single card {opt_one['values']}); "
+          f"params {r0['opt']['params']} (single card {opt_one['params']}); "
+          f"grad norm {r0['opt']['grad_norm']:.4e}; {r0['opt_s']:.2f} s",
+          flush=True)
+    check(abs(v_mesh - v_one) <= 1e-4 * abs(v_one),
+          f"{tag} optimize(mesh=): the first step's value differs from the "
+          f"single card's")
+    check(all(math.isfinite(v) for v in r0["opt"]["values"]
+              + r0["opt"]["params"] + [r0["opt"]["value"],
+                                       r0["opt"]["grad_norm"]]),
+          f"{tag} optimize(mesh=): a step is not finite")
+    _hold_grid(r0, _mc_tag("b"))
+    t1 = time.perf_counter()
+    dryrun_multichip(MC_CARDS, device=DEV, timeout_s=MC_TIMEOUT_S,
+                     backend=MC_BACKEND)
+    dry_s = time.perf_counter() - t1
+    print(f"{_mc_tag('b')} dryrun_multichip({MC_CARDS}): ok "
+          f"({dry_s:.1f} s)", flush=True)
+    return {"ranks": outs, "ranks_wall_s": wall, "dryrun_s": dry_s,
+            "mesh_of_one_ms": ref["ms"]}
+
+
+def _mc_beyond(torch, gt):
+    """Leg (c): the float64 oracles and the float32 witnesses on one card,
+    then the four ranks at N = MC_N_BEYOND, and the holds."""
+    from gpx_torch.models import gp
+    from gpx_torch.parallel.dryrun import run_ranks
+
+    tag = _mc_tag("c")
+    n = MC_N_BEYOND
+    params = _bench_params(gt)
+    x_np, y_np = _distinct_case(n)
+    x = torch.as_tensor(x_np, device=DEV)
+    y = torch.as_tensor(y_np, device=DEV)
+    xs = torch.linspace(-10.0, 10.0, MC_M, device=DEV)[:, None]
+    kern64 = _f64_kernel(gt, params.kernel)
+    t0 = time.perf_counter()
+    f64 = _logml64_lean(torch, gt, kern64, _centred64(x), y, gp.LOGML_NUGGET)
+    c = x.mean(dim=0, keepdim=True)
+    mean64, var64 = _predict64_lean(torch, kern64, _centred64(x), y,
+                                    (xs - c).double(), gp.PREDICT_NUGGET)
+    oracle_s = time.perf_counter() - t0
+    print(f"{tag} float64 oracles at N={n}, M={MC_M}: {oracle_s:.1f} s",
+          flush=True)
+    witness, lin = None, {}
+    try:
+        witness = _flat_result(gt, *gp.logml_value_and_grad(params, x, y))
+        print(f"{tag} float32 witness: the fused route on one card at N={n}",
+              flush=True)
+    except torch.cuda.OutOfMemoryError:
+        print(f"{tag} float32 witness: the fused route at N={n} does not fit "
+              f"one card; base limits alone", flush=True)
+    torch.cuda.empty_cache()
+    keep = gp.FUSED_MIN_N
+    gp.FUSED_MIN_N = n + 1
+    try:
+        post = gp.fit(params, x, y, xs)
+        lin = {"mean": post.mean, "variance": post.variance}
+        del post
+    except torch.cuda.OutOfMemoryError:
+        print(f"{tag} float32 witness of predict: torch.linalg's fit at "
+              f"N={n} does not fit one card", flush=True)
+    finally:
+        gp.FUSED_MIN_N = keep
+    del x, y
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    outs = run_ranks(_mc_rank_beyond, MC_CARDS, backend=MC_BACKEND, args=(n,),
+                     timeout_s=MC_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    _rank_lines(outs, tag, ["vag_launches", "vag_peak_gib", "vag_ms",
+                            "vag_trace", "predict_launches",
+                            "predict_peak_gib", "predict_ms"])
+    _ranks_alike(outs, ["logml", "predict"], tag)
+    for r, o in enumerate(outs):
+        check(o["vag_launches"]["gram"] == 1
+              and o["predict_launches"]["gram"] == 2,
+              f"{tag} rank {r}: not 1 Gram launch per logML and 2 per predict")
+    r0 = outs[0]
+    names = ["value", "h", "sigma", "white"]
+    _hold_scalars(f"{tag} d=4 N={n}", names, r0["logml"], f64,
+                  _bench_limits(f64), witness if witness else f64)
+    for what, limit, w64 in (("mean", MEAN_LIMIT, mean64),
+                             ("variance", VAR_LIMIT, var64)):
+        got = torch.as_tensor(r0["predict"]["values"][what == "variance"],
+                              device=DEV)
+        lin_err = (_err_of_scale(lin[what], w64) if what in lin
+                   else 0.0)
+        _hold_predict(f"{tag} distributed_predict n={n} m={MC_M}", what,
+                      _err_of_scale(got, w64), lin_err, limit)
+    _bytes_line(f"{tag} logML + gradient N={n}",
+                _panel_bytes(n, PAR_PANEL, MC_CARDS, grad=True))
+    _bytes_line(f"{tag} distributed_predict N={n} M={MC_M}",
+                _panel_bytes(n, PAR_PANEL, MC_CARDS, m=MC_M))
+    del lin, mean64, var64
+    torch.cuda.empty_cache()
+    return {"ranks": outs, "ranks_wall_s": wall, "oracle_s": oracle_s,
+            "f64": f64, "witness": witness}
+
+
+def _mc_huge(torch, gt):
+    """Leg (d): the matrix-free estimator on one card at three probe
+    seeds, then the four ranks' value at N = MC_N_HUGE, held to it."""
+    from gpx_torch.models import gp_iterative as gi
+    from gpx_torch.parallel.dryrun import run_ranks
+
+    tag = _mc_tag("d")
+    n = MC_N_HUGE
+    params = _bench_params(gt)
+    x_np, y_np = _distinct_case(n)
+    x = torch.as_tensor(x_np, device=DEV)
+    y = torch.as_tensor(y_np, device=DEV)
+    est, est_s = [], []
+    for seed in range(3):
+        t0 = time.perf_counter()
+        res = gi.logml_value_and_grad_iterative(
+            params, x, y, torch.Generator(device=DEV).manual_seed(seed),
+            **ITER)
+        est.append(float(res.value))
+        est_s.append(time.perf_counter() - t0)
+        check(res.cg_converged, f"{tag}: the estimator's CG did not converge")
+    del x, y, res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    outs = run_ranks(_mc_rank_huge, MC_CARDS, backend=MC_BACKEND, args=(n,),
+                     timeout_s=MC_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    _rank_lines(outs, tag, ["launches", "peak_gib", "ms"])
+    _ranks_alike(outs, ["value"], tag)
+    for r, o in enumerate(outs):
+        check(o["launches"]["gram"] == 1, f"{tag} rank {r}: not 1 Gram launch")
+    got, mid = outs[0]["value"], float(np.mean(est))
+    spread = max(est) - min(est)
+    own = 5e-3 * abs(mid) + 0.5
+    limit, why = ((own, "the estimator's own limit, phase 4: 5e-3 |value| "
+                   "+ 0.5") if own >= 3.0 * spread else
+                  (3.0 * spread, "3 x the estimator's spread over 3 seeds"))
+    print(f"{tag} distributed_logml N={n} (no_grad): {got:.8e}; matrix-free "
+          f"estimator on one card, seeds 0-2: {est} ({[round(s, 1) for s in est_s]}"
+          f" s), mean {mid:.8e}, spread {spread:.3e}; diff {abs(got - mid):.3e}"
+          f" (limit {limit:.3e}: {why})", flush=True)
+    check(math.isfinite(got) and abs(got - mid) <= limit,
+          f"{tag}: the distributed value differs from the estimator")
+    _bytes_line(f"{tag} logML N={n}", _panel_bytes(n, PAR_PANEL, MC_CARDS))
+    return {"ranks": outs, "ranks_wall_s": wall, "estimator": est,
+            "estimator_s": est_s, "limit": limit, "why": why}
+
+
+def _torchrun():
+    """The ``torchrun`` command, or the module it runs."""
+    import shutil
+
+    exe = shutil.which("torchrun")
+    return [exe] if exe else [sys.executable, "-m", "torch.distributed.run"]
+
+
+def _mc_page(torch):
+    """Leg (e): docs_torch/multi_chip.md as written, under ``torchrun
+    --nproc-per-node 4`` (each rank: ``--page-rank``), every process
+    stopped at the end."""
+    import os
+    import signal
+
+    tag = _mc_tag("e")
+    cmd = [*_torchrun(), "--standalone", "--nproc-per-node", str(MC_CARDS),
+           __file__, "--page-rank"]
+    print(f"{tag} {' '.join(cmd)}", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=MC_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    secs = time.perf_counter() - t0
+    ranks = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines()
+             if ln.startswith("page-rank ")]
+    for r in sorted(ranks, key=lambda o: o["rank"]):
+        print(f"{tag} rank {r['rank']} of {r['world']} (LOCAL_RANK "
+              f"{r['local_rank']}, card {r['card']}, {r['name']}, "
+              f"{r['backend']}): {r['seconds']:.1f} s of blocks; launches "
+              f"{json.dumps(r['launches'])}", flush=True)
+    if proc.returncode != 0:
+        print(f"{tag} torchrun exit {proc.returncode}; its errors' end:\n"
+              f"{stderr[-4000:]}", flush=True)
+    check(proc.returncode == 0 and len(ranks) == MC_CARDS,
+          f"{tag}: torchrun exit {proc.returncode}, {len(ranks)} ranks reported")
+    check(len({r["card"] for r in ranks}) == MC_CARDS,
+          f"{tag}: two ranks share a card")
+    check(all(r["backend"] == MC_BACKEND and r["world"] == MC_CARDS
+              and not r["not_finite"] and r["launches"]["gram"] > 0
+              for r in ranks), f"{tag}: a rank's world, backend, outputs or "
+          f"launches are wrong")
+    print(f"{tag} torchrun of multi_chip.md: {secs:.1f} s", flush=True)
+    return {"ranks": ranks, "seconds": secs}
+
+
+def page_rank_main(torch) -> int:
+    """One rank of leg (e) under torchrun: multi_chip.md's blocks as
+    written inside ``gpx_torch.parallel.mesh.world("cuda")``; prints one
+    ``page-rank`` JSON line."""
+    import os
+    import pathlib
+
+    import torch.distributed as dist
+
+    from gpx_torch.parallel.mesh import world
+
+    page = pathlib.Path(__file__).resolve().parent / "docs_torch" / "multi_chip.md"
+    with world("cuda") as size:
+        info = {"rank": dist.get_rank(), "world": size,
+                "local_rank": int(os.environ["LOCAL_RANK"]),
+                "backend": dist.get_backend(),
+                "card": torch.cuda.current_device(),
+                "name": torch.cuda.get_device_name()}
+        secs, launches, bad = _run_page(torch, page)
+        torch.cuda.synchronize()
+    info.update(seconds=secs, launches=launches, not_finite=bad)
+    print("page-rank " + json.dumps(info), flush=True)
+    return 0
+
+
+def phase_multi_card(torch, gt, probe_only=False):
+    """The multi-card mode: legs (a)-(e), each with ranks of its own (a
+    leg's fault is recorded and the next leg runs); with ``probe_only``,
+    the collectives probe and one bench-width eval. Returns (summary,
+    faults)."""
+    import os
+
+    print(f"multi-card backend {MC_BACKEND}; NCCL environment "
+          f"{json.dumps({k: v for k, v in os.environ.items() if k.startswith('NCCL_')})}",
+          flush=True)
+    if probe_only:
+        from gpx_torch.parallel.dryrun import run_ranks
+
+        outs = run_ranks(_mc_rank_probe, MC_CARDS, backend=MC_BACKEND,
+                         timeout_s=MC_TIMEOUT_S)
+        _rank_lines(outs, _mc_tag("probe"), ["probe", "vag_ms"])
+        _ranks_alike(outs, ["logml"], _mc_tag("probe"))
+        check(all(o["probe"]["ok"] for o in outs), "the collectives probe")
+        return {"probe": outs}, []
+    summary, faults = {}, []
+    for leg, fn in (("a", lambda: _mc_ab(torch, gt)),
+                    ("c", lambda: _mc_beyond(torch, gt)),
+                    ("d", lambda: _mc_huge(torch, gt)),
+                    ("e", lambda: _mc_page(torch))):
+        t0 = time.perf_counter()
+        try:
+            summary[leg] = fn()
+        except Exception as exc:          # recorded; the next leg runs
+            faults.append(f"({leg}) {type(exc).__name__}: {exc}")
+            print(f"{_mc_tag(leg)} FAULT {faults[-1]}", flush=True)
+            torch.cuda.empty_cache()
+        print(f"{_mc_tag(leg)} leg: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return summary, faults
+
+
+def _mc_rank_probe(rank):
+    """The probe on one rank of four: the collectives, then one
+    bench-width logML and gradient, timed."""
+    import torch
+
+    import gpx_torch as gt
+    from gpx_torch._device import full_fp32
+    from gpx_torch.parallel import distributed_logml_value_and_grad, make_mesh
+
+    full_fp32()
+    out = {"card": _rank_card(torch, rank)}
+    mesh = make_mesh(data=MC_CARDS, device=DEV)
+    out["probe"] = _collectives_probe(torch, mesh)
+    params, x, y = _bench_case_cuda(torch, gt)
+    t0 = time.perf_counter()
+    v, g = distributed_logml_value_and_grad(params, x, y, mesh,
+                                            panel=PAR_PANEL)
+    torch.cuda.synchronize()
+    out["vag_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["logml"] = _flat_result(gt, v, g)
+    return out
+
+
+_MC_KEYS = ("card", "probe", "vag_launches", "vag_peak_gib", "vag_ms",
+            "vag_trace", "launches", "peak_gib", "ms", "iterative_ms",
+            "cg_iters", "predict_launches", "predict_peak_gib", "predict_ms",
+            "opt_s", "seconds", "value")
+
+
+def _compact(summary):
+    """The mode's numbers for its JSON line: each leg's scalars and each
+    rank's card, launches, peaks, times and trace."""
+    legs = {}
+    for leg, s in summary.items():
+        ranks = s if isinstance(s, list) else s.get("ranks", [])
+        d = {} if isinstance(s, list) else {
+            k: v for k, v in s.items() if k != "ranks"
+            and (isinstance(v, (int, float, str)) or k in (
+                "mesh_of_one_ms", "estimator", "estimator_s", "f64",
+                "witness"))}
+        d["ranks"] = [{k: o[k] for k in _MC_KEYS if k in o} for o in ranks]
+        legs[leg] = d
+    return legs
+
+
+def _card_lines():
+    """Every card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()
+
+
+def main_multi_card(torch, gt) -> int:
+    """``--multi-card [--probe]``: exit 1 on fewer than MC_CARDS cards, or
+    on any fault a leg shows."""
+    count = torch.cuda.device_count()
+    try:
+        multi_card_gate(count)
+    except RuntimeError as exc:
+        print(f"chip_smoke: {exc}", file=sys.stderr)
+        return 1
+    argv = sys.argv[1:]
+    t0 = time.perf_counter()
+    phase_setup()
+    cards = _card_lines()
+    for i, line in enumerate(cards):
+        print(f"card {i}: {line}", flush=True)
+    summary, faults = phase_multi_card(torch, gt, probe_only="--probe" in argv)
+    secs = time.perf_counter() - t0
+    print(f"total {secs:.1f} s (multi-card, {MC_BACKEND}); faults: {faults}",
+          flush=True)
+    print(json.dumps({"multi_card": {
+        "backend": MC_BACKEND, "cards": cards, "probe": "--probe" in argv,
+        "faults": faults, "seconds": secs, "legs": _compact(summary)}}))
+    return 1 if faults else 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
+    if "--page-rank" in sys.argv[1:]:
+        return page_rank_main(torch)
     import gpx_torch as gt
 
+    if "--multi-card" in sys.argv[1:]:
+        return main_multi_card(torch, gt)
     t0 = time.perf_counter()
     card = phase_setup()
     if "--sampler-only" in sys.argv[1:]:

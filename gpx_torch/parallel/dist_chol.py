@@ -115,6 +115,14 @@ def _chol_panels(k_loc, *, mesh, axis: str, n: int, panel: int):
     batch = k_loc.shape[:-2]
     # the live block: own rows [max(row0, s), hi) x columns [s, hi)
     a = k_loc[..., :, :hi]
+    # each trailing update is one fused product (a - sol sol^T in the
+    # GEMM's epilogue), the first into a block of its own (k_loc is the
+    # caller's). Where autograd records nothing, the others write into
+    # that block in place: a rank holds its rows of K and one live block.
+    # Out of place, the update's product and result were two more blocks:
+    # 64 GiB on the widest of four ranks at N = 131,072, past an 80 GB card
+    untracked = not (torch.is_grad_enabled() and k_loc.requires_grad)
+    owned = False
     cols = []
     for s in range(0, n, panel):
         e = s + panel
@@ -139,8 +147,21 @@ def _chol_panels(k_loc, *, mesh, axis: str, n: int, panel: int):
         parts.append(sol[..., r - e:, :])
         cols.append(torch.cat(parts, dim=-2))
         if e < hi:
-            a = a[..., r - lo:, :] - sol[..., r - e:, :] @ sol.mT
+            a = _rank_update(a[..., r - lo:, :], sol[..., r - e:, :], sol,
+                             in_place=owned)
+            owned = untracked
     return cols
+
+
+def _rank_update(a, u, v, *, in_place: bool):
+    """``a - u v^T`` (``(..., m, k)`` each, a batch dimension or none) as
+    one product with ``a`` in its epilogue, written into ``a`` where
+    ``in_place``."""
+    if a.ndim == 2:
+        return (a.addmm_(u, v.mT, alpha=-1.0) if in_place
+                else torch.addmm(a, u, v.mT, alpha=-1.0))
+    return (a.baddbmm_(u, v.mT, alpha=-1.0) if in_place
+            else torch.baddbmm(a, u, v.mT, alpha=-1.0))
 
 
 def distributed_half_logdet(l_sharded, mesh, *, axis: str = "data"):

@@ -68,10 +68,16 @@ def run_ranks(fn, world_size: int, *, backend: str, args=(),
               timeout_s: float = 600.0, threads: int | None = None) -> list:
     """``[fn(rank, *args) for rank in range(world_size)]``, each call in its
     own process joined to a ``backend`` process group (``"gloo"``:
-    CPU ranks, or ranks that share a card; ``"nccl"``: one card a rank).
-    With a card, rank ``r`` works on card ``r % device_count``. ``fn`` must
-    be importable by name and its results picklable. ``threads`` sets each
+    CPU ranks, or ranks that share a card; ``"nccl"``: one card a rank,
+    and a ``ValueError`` where the ranks outnumber the cards). With a card,
+    rank ``r`` works on card ``r % device_count``. ``fn`` must be
+    importable by name and its results picklable. ``threads`` sets each
     rank's torch CPU threads."""
+    cards = torch.cuda.device_count()
+    if backend == "nccl" and world_size > cards:
+        raise ValueError(f"{world_size} NCCL ranks need a card each, and "
+                         f"this host has {cards}: ranks that share a card "
+                         f"run over gloo")
     ctx = mp.get_context("forkserver")
     ctx.set_forkserver_preload(_PRELOAD)
     results = ctx.Queue()
@@ -128,14 +134,13 @@ def run_ranks(fn, world_size: int, *, backend: str, args=(),
     return [outs[r] for r in range(world_size)]
 
 
-def dryrun_multichip(n_devices: int, device="cuda",
+def dryrun_multichip(n_devices: int, *, backend: str, device="cuda",
                      timeout_s: float = 600.0) -> None:
-    """The multi-device dry run on ``n_devices`` ranks of their own, on the card
-    (ranks that outnumber the cards share them over gloo, else NCCL) or on
-    the CPU (``device="cpu"``, gloo). Raises if any part fails."""
+    """The multi-device dry run on ``n_devices`` ranks of their own, on the
+    card or on the CPU (``device="cpu"``), over ``backend``: ``"nccl"``
+    for one card a rank, ``"gloo"`` for CPU ranks or ranks that share a
+    card (:func:`run_ranks`). Raises if any part fails."""
     on_card = torch.device(device).type == "cuda"
-    backend = ("nccl" if on_card and torch.cuda.device_count() >= n_devices
-               else "gloo")
     run_ranks(_dryrun_rank, n_devices, backend=backend,
               args=(n_devices, str(device)), timeout_s=timeout_s,
               threads=None if on_card else 1)

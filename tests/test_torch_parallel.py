@@ -103,6 +103,14 @@ def test_distributed_cholesky_matches_gpx(run):
     np.testing.assert_allclose(outs[0]["chol"], np.asarray(want), atol=1e-8)
 
 
+def test_distributed_cholesky_leaves_its_input(run):
+    """The factor's trailing updates run in place where autograd records
+    nothing, in a block the factor owns: the caller's K is unchanged on
+    every rank."""
+    _, outs = run
+    assert all(o["k_kept"] for o in outs)
+
+
 @pytest.mark.parametrize("what", ["forward", "back", "cols", "half_logdet"])
 def test_solves_and_logdet(run, what):
     """At the JAX package's own tolerances (tests/test_dist_chol.py)."""
@@ -139,6 +147,49 @@ def test_predict_matches_gpx_fit(run, which):
                                atol=1e-8)
     np.testing.assert_allclose(outs[0][which][1], np.asarray(post.variance),
                                atol=1e-8)
+
+
+def test_distributed_logml_without_grad_matches_gpx(run):
+    """``distributed_logml`` under ``torch.no_grad()``: the value alone,
+    through the panel program with no autograd record."""
+    inp, outs = run
+    want = _oracle(gp.log_marginal_likelihood, _bench(),
+                   jnp.asarray(inp["x"]), jnp.asarray(inp["y"]))
+    np.testing.assert_allclose(outs[0]["logml_nograd"], float(want),
+                               rtol=1e-10)
+
+
+def test_nccl_ranks_never_share_a_card():
+    """``run_ranks`` refuses more NCCL ranks than cards, before it starts
+    any process."""
+    import torch
+
+    from gpx_torch.parallel.dryrun import run_ranks
+
+    with pytest.raises(ValueError, match="need a card each"):
+        run_ranks(ranks.run, torch.cuda.device_count() + 1, backend="nccl")
+
+
+def test_dryrun_multichip_takes_its_backend():
+    """The dry run's backend is the caller's: it has no default to switch
+    from."""
+    from gpx_torch.parallel.dryrun import dryrun_multichip
+
+    with pytest.raises(TypeError, match="backend"):
+        dryrun_multichip(4, device="cpu")
+
+
+@pytest.mark.parametrize("count", [0, 3, 4, 8])
+def test_multi_card_gate(count):
+    """``chip_smoke.py --multi-card`` runs on four cards or more, one a
+    rank, and names the count where there are fewer."""
+    import chip_smoke
+
+    if count < chip_smoke.MC_CARDS:
+        with pytest.raises(RuntimeError, match=f"this machine has {count}$"):
+            chip_smoke.multi_card_gate(count)
+    else:
+        chip_smoke.multi_card_gate(count)
 
 
 def test_sharded_logml_matches_gpx(run):

@@ -55,6 +55,9 @@ def _factor_cases(out, inp, mesh):
     k, b, bm = _t(inp["spd"]), _t(inp["b"]), _t(inp["bm"])
     l = dist_chol.distributed_cholesky(k, mesh, panel=PANEL)
     out["chol"] = _np(comm.all_gather(l.to_local(), mesh, "data"))
+    # the factor's trailing updates write in place into a block of their
+    # own, never into the caller's K
+    out["k_kept"] = bool(torch.equal(k, _t(inp["spd"])))
     out["forward"] = _np(dist_chol.distributed_forward_solve(l, b, mesh,
                                                              panel=PANEL))
     out["back"] = _np(dist_chol.distributed_back_solve(l, b, mesh,
@@ -91,7 +94,8 @@ def _errors(out, inp, mesh):
 
 def _logml_cases(out, inp, meshes):
     import gpx_torch as gt
-    from gpx_torch.parallel import distributed_logml_value_and_grad
+    from gpx_torch.parallel import (distributed_logml,
+                                    distributed_logml_value_and_grad)
 
     x, y = _t(inp["x"]), _t(inp["y"])
     for d, mesh in meshes.items():
@@ -100,6 +104,11 @@ def _logml_cases(out, inp, meshes):
         v, g = distributed_logml_value_and_grad(_bench(gt), x, y, mesh,
                                                 panel=PANEL)
         out[f"logml_d{d}"] = np.concatenate([[float(v)], _flat(gt, g)])
+    # the value alone, no autograd record: the panel program as the
+    # largest run takes it
+    with torch.no_grad():
+        out["logml_nograd"] = float(distributed_logml(
+            _bench(gt), x, y, meshes[4], panel=PANEL))
 
 
 def _predict_cases(out, inp, mesh, grid_mesh):
